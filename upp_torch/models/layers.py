@@ -7,8 +7,11 @@ but compute on a channels-last layout as a matrix product, like the JAX
 package's Dense layers.
 
 Numerics as in the JAX model: LayerNorm eps 1e-6, BatchNorm eps 1e-5 with
-torch's running-statistics semantics (momentum 0.1 here is flax's 0.9),
-exact GELU.
+torch's running-statistics semantics (momentum 0.1 here is flax's 0.9;
+batch statistics in ``.train()``, the unbiased variance folded into the
+running average, as the JAX ``TorchBatchNorm`` imitates), exact GELU.
+Random draws of train mode (dropout, drop-path) come from torch's RNG on the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,17 @@ BN_EPS = 1e-5
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath): in training, each sample
+    is zeroed with probability ``rate`` and the rest scaled by 1/(1-rate)."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
+                       dtype=x.dtype).bernoulli_(keep)
+    return x / keep * mask
 
 
 def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
@@ -106,8 +120,8 @@ class Attention(nn.Module):
 
 
 class Adapter(nn.Module):
-    """Bottleneck adapter with a fixed 0.7 output scale
-    (``Point_MAE_pretask_dev.py:54-104``)."""
+    """Bottleneck adapter with dropout 0.1 inside and a fixed 0.7 output
+    scale (``Point_MAE_pretask_dev.py:54-104``)."""
 
     scale = 0.7
 
@@ -115,10 +129,12 @@ class Adapter(nn.Module):
         super().__init__()
         self.layer_norm = layer_norm(embed_dims)
         self.ln1 = nn.Linear(embed_dims, reduction_dims)
+        self.dropout = nn.Dropout(0.1)
         self.ln2 = nn.Linear(reduction_dims, embed_dims)
 
     def forward(self, x):
-        return self.ln2(F.gelu(self.ln1(self.layer_norm(x)))) * self.scale
+        h = self.dropout(F.gelu(self.ln1(self.layer_norm(x))))
+        return self.ln2(h) * self.scale
 
 
 class Encoder(nn.Module):

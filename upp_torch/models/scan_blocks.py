@@ -13,8 +13,10 @@ The JAX package stacks every per-block tensor and runs each pass as a
 
 All passes share the one backbone. Block ``i`` carries ``{path}_adapter``
 for i below the path's adapter length and ``{path}_prompts`` [num, C] for i
-below its prompt depth: the reference's per-block ``.pth`` keys. Inference
-only: dropout and drop-path are identities.
+below its prompt depth: the reference's per-block ``.pth`` keys. In
+``.train()`` block ``i`` of a stack of depth L drops its residual branches
+per sample at rate ``drop_path_rate * i / (L - 1)``
+(``upp_tpu/models/scan_blocks.py:222-224``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from torch import nn
 
 from ..ops.propagate import inverse_distance_interp
 from .blocks import PrompterConfig
-from .layers import BN_EPS, Adapter, Attention, Mlp, batch_norm_last, layer_norm
+from .layers import (BN_EPS, Adapter, Attention, Mlp, batch_norm_last, drop_path,
+                     layer_norm)
 
 PATHS = ("rectify", "pretask", "downstream")
 
@@ -36,8 +39,10 @@ class PromptedBlock(nn.Module):
     prompt-propagation pooling BatchNorm (``bnorm``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 adapters: Sequence[str], prompts: Dict[str, int]):
+                 adapters: Sequence[str], prompts: Dict[str, int],
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = layer_norm(dim)
         self.attn = Attention(dim, num_heads)
         self.norm2 = layer_norm(dim)
@@ -62,8 +67,8 @@ class PromptedBlock(nn.Module):
                 x = torch.cat([x[:, :1], ptok, x[:, 1:]], dim=1)
             else:
                 x = torch.cat([ptok, x], dim=1)
-        x = x + self.attn(self.norm1(x))
-        x = x + self.mlp(self.norm2(x))
+        x = x + drop_path(self.attn(self.norm1(x)), self.drop_path_rate, self.training)
+        x = x + drop_path(self.mlp(self.norm2(x)), self.drop_path_rate, self.training)
         if prompted and propagation is not None:
             x = self._propagate(x, classification, propagation)
         if prompted:
@@ -105,6 +110,12 @@ class PromptedBlock(nn.Module):
         return torch.cat(parts, dim=1)
 
 
+def block_drop_path(rate: float, i: int, depth: int) -> float:
+    """Drop-path rate of block ``i``: linear from 0 to ``rate`` over the
+    stack."""
+    return rate * i / max(depth - 1, 1)
+
+
 def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
                prompt_depth: int, adapter_len: int,
                classification: bool = False, propagation: Optional[dict] = None):
@@ -126,7 +137,8 @@ class ScannedEncoderStack(nn.Module):
     ``.pth``)."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0, prompter: PrompterConfig = PrompterConfig()):
+                 mlp_ratio: float = 4.0, prompter: PrompterConfig = PrompterConfig(),
+                 drop_path_rate: float = 0.0):
         super().__init__()
         p = prompter
         self.depth = depth
@@ -144,7 +156,8 @@ class ScannedEncoderStack(nn.Module):
             PromptedBlock(embed_dim, num_heads, mlp_ratio,
                           adapters=[q for q in PATHS if i < self.adapter_len[q]],
                           prompts={q: getattr(p, f"{q}_prompts_num") for q in PATHS
-                                   if i < self.prompt_len[q]})
+                                   if i < self.prompt_len[q]},
+                          drop_path_rate=block_drop_path(drop_path_rate, i, depth))
             for i in range(depth))
 
     def forward(self, x, pos, *, path: str, classification: bool = False,
@@ -162,12 +175,13 @@ class ScannedDecoderStack(nn.Module):
     ``.pth``)."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.0):
         super().__init__()
         self.blocks = nn.ModuleList(
             PromptedBlock(embed_dim, num_heads, mlp_ratio, adapters=("pretask",),
-                          prompts={})
-            for _ in range(depth))
+                          prompts={},
+                          drop_path_rate=block_drop_path(drop_path_rate, i, depth))
+            for i in range(depth))
         self.norm = layer_norm(embed_dim)
 
     def forward(self, x, pos, return_token_num: int):

@@ -1,11 +1,14 @@
-"""UPP classification model Point_MAE_unify (counterpart of
-``upp_tpu/models/unify.py``; reference ``models/Point_MAE_unify.py:390-655``).
+"""UPP unified models (counterpart of ``upp_tpu/models/unify.py``):
+Point_MAE_unify, the classifier (reference
+``models/Point_MAE_unify.py:390-655``), and Point_MAE_pretask_dev, the
+prompter-pretraining model (``models/Point_MAE_pretask_dev.py:520-741``).
 
 Three passes over one shared prompted backbone: rectify (depth 3, per-point
 rectification vectors, top-5% drop), completion (depth 6, coarse missing
 centers, 4-block decoder, dense rebuild, re-FPS) and downstream (12 blocks
-with prompt propagation) → classification head. Inference only; the
-training step arrives with the next slice.
+with prompt propagation) → classification head. The classifier runs in
+inference only so far (its training is the next slice); the pretask model
+trains.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from ..ops.fps import fps
 from ..ops.group import group_points
+from ..ops.knn import knn_points
 from ..ops.propagate import propagate
 from ..utils.config import to_config
 from .blocks import PrompterConfig
@@ -45,31 +49,33 @@ class _UnifyCore(nn.Module):
 
     vis_short = 16
 
-    def __init__(self, trans_dim: int = 384, depth: int = 12, num_heads: int = 6,
-                 encoder_dims: int = 384, decoder_depth: int = 4,
-                 decoder_num_heads: int = 6, group_size: int = 32,
-                 num_group: int = 64, mask_ratio: float = 0.5,
-                 prompter: PrompterConfig = PrompterConfig()):
+    def __init__(self, cfg):
         super().__init__()
+        tc = cfg.transformer_config
+        trans_dim, group_size, num_group = tc.trans_dim, cfg.group_size, cfg.num_group
+        drop_path_rate = tc.drop_path_rate
         self.trans_dim = trans_dim
         self.group_size = group_size
         self.num_group = num_group
         # visible groups: the reference hardcodes the 64-group anchor; the
         # JAX package generalises to num_group (identical at 64)
-        self.vis_num = num_group - int(mask_ratio * num_group)
+        self.vis_num = num_group - int(tc.mask_ratio * num_group)
         n_mask = num_group - self.vis_num
-        self.encoder = Encoder(encoder_dims)
+        self.encoder = Encoder(tc.encoder_dims)
         self.pos_embed = PosEmbedMLP(trans_dim)
-        self.blocks = ScannedEncoderStack(trans_dim, depth, num_heads,
-                                          prompter=prompter)
+        self.blocks = ScannedEncoderStack(
+            trans_dim, tc.depth, tc.num_heads,
+            prompter=PrompterConfig.from_cfg(cfg.get("prompter_config")),
+            drop_path_rate=drop_path_rate)
         self.norm = layer_norm(trans_dim)
         self.shape_pred = TwoLayerHead(trans_dim, trans_dim // 2, self.vis_short)
         self.coarse_pred = TwoLayerHead(self.vis_short * self.vis_num, trans_dim,
                                         3 * n_mask)
         self.predict_token_generator = TwoLayerHead(trans_dim, 128, trans_dim)
         self.decoder_pos_embed = PosEmbedMLP(trans_dim)
-        self.MAE_decoder = ScannedDecoderStack(trans_dim, decoder_depth,
-                                               decoder_num_heads)
+        self.MAE_decoder = ScannedDecoderStack(trans_dim, tc.decoder_depth,
+                                               tc.decoder_num_heads,
+                                               drop_path_rate=drop_path_rate)
         self.dense_pred = nn.Sequential(PointConv(trans_dim, 3 * group_size))
         self.rectify_prompter = RectifyPrompter(hidden_dimension=trans_dim)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, trans_dim))
@@ -126,24 +132,18 @@ class PointMAEUnify(_UnifyCore):
 
     def __init__(self, config: Any):
         cfg = to_config(config)
-        tc = cfg.transformer_config
-        super().__init__(
-            trans_dim=tc.trans_dim, depth=tc.depth, num_heads=tc.num_heads,
-            encoder_dims=tc.encoder_dims, decoder_depth=tc.decoder_depth,
-            decoder_num_heads=tc.decoder_num_heads, group_size=cfg.group_size,
-            num_group=cfg.num_group, mask_ratio=tc.mask_ratio,
-            prompter=PrompterConfig.from_cfg(cfg.get("prompter_config")))
+        super().__init__(cfg)
         if (cfg.get("gather_idx", False)
                 or cfg.get("propagation_semantics", "reference") != "reference"):
             raise NotImplementedError(
                 "only the reference cls propagation (gather_idx: False) is "
                 "ported; gather_idx / clean semantics arrive with segmentation")
         self.prompt_propagation_after = bool(cfg.get("prompt_propagation_after", False))
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, tc.trans_dim))
-        self.cls_pos = nn.Parameter(torch.zeros(1, 1, tc.trans_dim))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, self.trans_dim))
+        self.cls_pos = nn.Parameter(torch.zeros(1, 1, self.trans_dim))
         nn.init.trunc_normal_(self.cls_token, std=0.02)
         nn.init.trunc_normal_(self.cls_pos, std=0.02)
-        self.cls_head_finetune = ClsHead(2 * tc.trans_dim, cfg.cls_dim)
+        self.cls_head_finetune = ClsHead(2 * self.trans_dim, cfg.cls_dim)
 
     def forward(self, pts: torch.Tensor, *, completion_prompt: bool = False,
                 denoise: bool = False, point_num: int = 1024) -> torch.Tensor:
@@ -177,3 +177,44 @@ class PointMAEUnify(_UnifyCore):
         x = self.norm(x)
         concat_f = torch.cat([x[:, 0], x[:, 1:].amax(1)], dim=-1)
         return self.cls_head_finetune(concat_f)
+
+
+@MODELS.register_module("Point_MAE_pretask_dev")
+class PointMAEPretask(_UnifyCore):
+    """Prompter pretraining model (``models/Point_MAE_pretask_dev.py:520-741``).
+
+    In ``.train()`` with noise (``train_with_gaussian``) the rectify pass is
+    supervised by the mean displacement of each injected noise point to its
+    K=4 nearest clean points, and the P - point_num noisiest points are
+    dropped (no gradient through the drop) before the completion pass:
+    returns (predict_center, rebuild, noise_loss, recall). Otherwise it runs
+    the completion pass alone: (predict_center, rebuild). The config's
+    ``gather_idx`` and ``prompt_propagation_after`` are accepted and unused,
+    as in the JAX package: no pretask pass propagates prompts."""
+
+    def __init__(self, config: Any):
+        super().__init__(to_config(config))
+
+    def forward(self, pts: torch.Tensor, *, point_num: int = 2048,
+                train_with_gaussian: bool = True):
+        if not (train_with_gaussian and self.training):
+            return self.complete(pts)
+        B, P, _ = pts.shape
+        pred_vector = self.rectify_vectors(pts)
+        noise, partial = pts[:, point_num:], pts[:, :point_num]
+        # supervision: mean displacement to the K=4 nearest clean points
+        # (Point_MAE_pretask_dev.py:680-689)
+        _, _, clean_nn = knn_points(noise, partial, 4)
+        noise_vector = (clean_nn - noise[:, :, None, :]).mean(-2)
+        positive = ((pred_vector[:, point_num:] - noise_vector) ** 2).sum(-1).mean()
+        negative = (pred_vector[:, :point_num] ** 2).sum(-1).mean()
+        noise_loss = positive + negative
+
+        score = torch.linalg.norm(pred_vector, dim=-1)
+        order = torch.argsort(-score, dim=1, stable=True)         # descending
+        n_drop = P - point_num
+        recall = ((order[:, :n_drop] >= point_num).float().sum(-1) / n_drop).mean()
+        keep_idx = order[:, n_drop:]
+        pts = torch.gather(pts, 1, keep_idx[..., None].expand(-1, -1, 3)).detach()
+        predict_center, rebuild = self.complete(pts)
+        return predict_center, rebuild, noise_loss, recall

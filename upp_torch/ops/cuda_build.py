@@ -22,9 +22,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "upp_torch"
 # -fmad=false: no multiply-add contraction, so the kernels' distance
 # arithmetic rounds exactly like the plain PyTorch versions (bit-equal
-# distances, identical argmin/argmax decisions)
+# distances, identical argmin/argmax decisions); -Xptxas -v: ptxas reports
+# each kernel's registers, spills and shared memory, which ``build`` returns
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -48,10 +49,11 @@ def _compile_cmd(name: str, out: Path):
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(names: Iterable[str]) -> None:
+def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources that are not built yet, all in parallel
-    (one ``nvcc`` per source). Raises with the compiler's output on a
-    failure."""
+    (one ``nvcc`` per source). Returns ptxas's resource lines (registers,
+    spills, shared memory) of each source compiled by this call. Raises
+    with the compiler's output on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
@@ -62,15 +64,18 @@ def build(names: Iterable[str]) -> None:
         procs.append((name, out, tmp, subprocess.Popen(
             _compile_cmd(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
-    errors = []
+    errors, usage = [], {}
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)       # atomic: a half-written library is never loaded
+        usage[name] = "; ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
+                                if "registers" in line or "spill" in line)
     if errors:
         raise RuntimeError("\n".join(errors))
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,15 +1,18 @@
 """k-nearest-neighbour search (counterpart of ``upp_tpu/ops/knn.py``).
 
 On CUDA tensors ``knn``/``knn_points`` run the hand-written kernel
-(``knn_cuda`` / ``csrc/knn.cu``) at every call site, whatever the size; on
-CPU tensors they run ``knn_plain``, the plain PyTorch version the kernel is
-held against. Both use the difference form of the squared distance, as the
-Pallas kernel does, and break ties toward the lowest index.
+(``knn_cuda`` / ``csrc/knn.cu``) at every call site, whatever the size,
+inside ``KnnKernel``, an autograd Function whose backward is the JAX
+package's custom VJP (``knn_pallas.py:186-204, 229-237``) in plain tensor
+code, as it is there. On CPU tensors they run ``knn_plain``, the plain
+PyTorch version the kernel is held against, and autograd differentiates it.
+Both use the difference form of the squared distance, as the Pallas kernel
+does, and break ties toward the lowest index.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,10 +43,47 @@ def knn_plain(query: torch.Tensor, points: torch.Tensor, k: int
     return d[..., :k], idx[..., :k]
 
 
-def _kernel(query, points, k, gather):
-    from . import knn_cuda
-    return knn_cuda.knn(query.float().contiguous(), points.float().contiguous(),
-                        k, gather)
+def knn_backward(query: torch.Tensor, points: torch.Tensor, idx: torch.Tensor,
+                 nbr: torch.Tensor, g_d: torch.Tensor, g_nb: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients (query, points) of d_j = ||q - nb_j||^2 and nb_j =
+    points[idx_j]: g_q = sum_j 2 g_d (q - nb_j); each neighbour row adds
+    g_nb - 2 g_d (q - nb_j) to its point (a scatter-add over ``idx``)."""
+    diff = query.float()[:, :, None, :] - nbr.float()          # [B, S, k, 3]
+    g_q = (2.0 * g_d[..., None] * diff).sum(2)
+    rows = -2.0 * g_d[..., None] * diff
+    if g_nb is not None:
+        rows = rows + g_nb.float()
+    B, N = points.shape[:2]
+    flat = (idx + (torch.arange(B, device=idx.device) * N)[:, None, None]).reshape(-1)
+    g_p = torch.zeros((B * N, 3), dtype=torch.float32, device=points.device)
+    g_p.index_add_(0, flat, rows.reshape(-1, 3))
+    return g_q.to(query.dtype), g_p.reshape(points.shape).to(points.dtype)
+
+
+class KnnKernel(torch.autograd.Function):
+    """The kNN kernel with a backward: forward (query [B,S,3], points
+    [B,N,3], k, gather) -> (d, idx int64[, nbr]) from ``knn_cuda.knn``."""
+
+    @staticmethod
+    def forward(ctx, query, points, k: int, gather: bool):
+        from . import knn_cuda
+        d, idx, nbr = knn_cuda.knn(query.detach().float().contiguous(),
+                                   points.detach().float().contiguous(), k, gather)
+        idx = idx.long()
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(query, points, idx, nbr)
+        if gather:
+            return d, idx, nbr.to(points.dtype)
+        return d, idx
+
+    @staticmethod
+    def backward(ctx, g_d, _g_idx, g_nb=None):
+        query, points, idx, nbr = ctx.saved_tensors
+        if nbr is None:                      # idx-only: gather for the backward
+            nbr = index_points(points, idx)
+        g_q, g_p = knn_backward(query, points, idx, nbr, g_d, g_nb)
+        return g_q, g_p, None, None
 
 
 def knn(query: torch.Tensor, points: torch.Tensor, k: int
@@ -57,8 +97,7 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
       (sq_dists [B, S, k] ascending, idx [B, S, k] int64)
     """
     if query.device.type == "cuda":
-        d, idx, _ = _kernel(query, points, k, gather=False)
-        return d, idx.long()
+        return KnnKernel.apply(query, points, k, False)
     if query.device.type == "cpu":
         return knn_plain(query, points, k)
     raise ValueError(f"knn: unsupported device {query.device}")
@@ -70,8 +109,7 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, k: int
 
     Returns (sq_dists [B,S,k], idx [B,S,k] int64, nn_xyz [B,S,k,3])."""
     if query.device.type == "cuda":
-        d, idx, nbr = _kernel(query, points, k, gather=True)
-        return d, idx.long(), nbr.to(points.dtype)
+        return KnnKernel.apply(query, points, k, True)
     if query.device.type == "cpu":
         d, idx = knn_plain(query, points, k)
         return d, idx, index_points(points, idx)

@@ -1,8 +1,10 @@
-"""Binding of the CUDA kNN kernel (``csrc/knn.cu``), forward only.
+"""Binding of the CUDA kNN kernel (``csrc/knn.cu``).
 
-``knn`` takes CUDA tensors only; ``ops.knn`` sends CPU tensors to the plain
-PyTorch version instead. The library is built at first use (see
-``cuda_build``), never at import.
+``knn`` takes CUDA tensors only and carries no gradient: it refuses an input
+that requires one, so gradients go through ``ops.knn``'s autograd Function,
+which calls it. ``ops.knn`` sends CPU tensors to the plain PyTorch version
+instead. The library is built at first use (see ``cuda_build``), never at
+import.
 """
 
 from __future__ import annotations
@@ -50,8 +52,9 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, gather: bool
     if query.device != points.device or query.shape[0] != points.shape[0]:
         raise ValueError("knn: query and points must share device and batch")
     if torch.is_grad_enabled() and (query.requires_grad or points.requires_grad):
-        raise NotImplementedError("knn: the CUDA kernel is forward-only; its "
-                                  "backward arrives with the training slice")
+        raise RuntimeError("knn: the kernel carries no gradient; call "
+                           "ops.knn.knn / knn_points, whose autograd Function "
+                           "has the backward")
     B, S, _ = query.shape
     N = points.shape[1]
     if not 0 < N <= MAX_N:

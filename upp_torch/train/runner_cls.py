@@ -1,7 +1,8 @@
 """Classification evaluation (counterpart of the eval half of
 ``upp_tpu/train/runner_cls.py``: ``make_eval_step``, ``validate``,
-``test_net``). Training, checkpoint loading and the vote arrive with the
-training slice.
+``test_net``), and the model and loader set-up the runners share
+(``init_model``, ``build_loaders``). Classification training, checkpoint
+loading and the vote are still to be ported.
 """
 
 from __future__ import annotations
@@ -17,16 +18,31 @@ from ..ops.fps import fps
 from ..utils.logger import get_logger, print_log
 
 
+def build_loaders(args, config):
+    """(train loader: shuffled per epoch from ``args.seed``, full batches
+    only; val loader: in order, every sample), single process."""
+    train_ds = build_dataset_from_cfg(config.dataset.train._base_,
+                                      config.dataset.train.others)
+    val_ds = build_dataset_from_cfg(config.dataset.val._base_,
+                                    config.dataset.val.others)
+    train_loader = BatchLoader(train_ds, config.dataset.train.others.bs,
+                               shuffle=True, drop_last=True,
+                               seed=int(getattr(args, "seed", 0)))
+    val_loader = BatchLoader(val_ds, config.dataset.val.others.bs,
+                             shuffle=False, drop_last=False)
+    return train_loader, val_loader
+
+
 def init_model(args, config, device: torch.device, logger=None):
     """Build the model from the config with weights from ``args.seed``,
     created on the CPU first so every device gets the same weights."""
     if getattr(args, "ckpts", None):
-        raise NotImplementedError("loading --ckpts arrives with the training "
-                                  "slice; omit it to evaluate a seeded init")
+        raise NotImplementedError("loading --ckpts is not ported yet; omit it "
+                                  "to start from a seeded init")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(getattr(args, "seed", 0)))
         model = build_model_from_cfg(config.model)
-    print_log(f"Evaluating a seeded init (seed {getattr(args, 'seed', 0)})",
+    print_log(f"Model from a seeded init (seed {getattr(args, 'seed', 0)})",
               logger=logger)
     return model.to(device).eval()
 
