@@ -10,8 +10,12 @@ Phases, each fatal on failure:
   2. hold each kernel against its plain PyTorch version on the card at
      every shape the paths give it (classification shapes at batch 120,
      pretask shapes at batch 64): FPS indices equal, kNN indices equal and
-     distances within 1e-6, Chamfer indices equal and distances within 1e-6
-     with and without validity masks; time kernel and plain;
+     distances within 1e-6 (gathered xyz equal), Chamfer indices equal and
+     distances within 1e-6 with and without validity masks; time kernel and
+     plain. Then FPS and kNN again on grid-quantized clouds full of repeated
+     points (real ties) at the big path shapes, and at the edge shapes of
+     their limits on random and tie clouds, with every FPS variant run; and
+     the host time per wrapper call at two small shapes;
   3. kNN backward: gradients to query and points through the kernel's
      autograd Function against autograd through ``knn_plain`` (rtol 1e-5,
      atol 1e-6) at the pretask's gradient shapes; time both backwards;
@@ -19,7 +23,9 @@ Phases, each fatal on failure:
      at full width on 120 synthetic 8192-point clouds, seeded weights;
   5. robust inference: ``corrupt_batch`` (viewpoint crop 8192→1024, +48
      lidar, +24 shell points) then the 3-pass ``PointMAEUnify`` at full
-     width, batch 120: finite logits, launch counts of one step, time;
+     width, batch 120: finite logits, launch counts of one step, time; then
+     ``torch.profiler`` over 3 steps: device-busy ms per step, idle share,
+     the FPS and kNN kernels' device time;
   6. card vs CPU: the same weights and corrupted input at batch 8 through
      the kernels on the card and the plain versions on the CPU: logits
      within rtol 1e-3 / atol 2e-3, equal argmax;
@@ -113,6 +119,18 @@ PRETASK_EVAL_CALLS = Counter({
     ("chamfer", 2048, 8192, False): 5,        # dense L1, L2, F-score, CDL1, CDL2
 })
 KNN_GRAD_CALLS = (("knn", 32, 32, 6, False), ("knn", 32, 1024, 16, True))
+# path shapes held to the plain versions again on grid-quantized clouds full
+# of repeated points (every squared distance exact: real ties), at batch B
+TIE_CALLS = (("knn", 64, 1024, 32, True), ("knn", 32, 1096, 16, True),
+             ("fps", 8192, 1024, True), ("fps", 1228, 1024, False))
+# the kernels' limits and, with the path shapes, every FPS variant (csrc/fps.cu
+# chooses one by N), on random clouds and on tie clouds, at batch B_EDGE
+B_EDGE = 8
+EDGE_CALLS = (("knn", 64, 16384, 32, True), ("knn", 37, 16, 16, True),
+              ("knn", 1, 1024, 32, True), ("knn", 100, 1096, 16, False),
+              ("fps", 16384, 1024, True), ("fps", 16384, 256, False),
+              ("fps", 3000, 512, False), ("fps", 100, 64, False), ("fps", 20, 20, True))
+HOST_CALLS = (("knn", 64, 32, 8, False), ("fps", 64, 32, False))   # host cost per call
 KERNEL_SOURCES = {
     "fps": ("upp_torch/csrc/fps.cu", "upp_tpu/ops/fps_pallas.py:38"),
     "knn": ("upp_torch/csrc/knn.cu", "upp_tpu/ops/knn_pallas.py:48"),
@@ -312,19 +330,31 @@ def _check_chamfer(call, clouds, gen):
     return err, ms, plain_ms
 
 
+def tie_clouds(bsz, n, gen):
+    """[bsz, n, 3] on the card: n // 2 points of the grid of multiples of 1/8
+    in [-1, 1] and n - n // 2 repeats of them, in a random order."""
+    base = torch.randint(-8, 9, (bsz, n // 2, 3), generator=gen, device=gen.device) / 8.0
+    pick = torch.randint(0, n // 2, (bsz, n - n // 2), generator=gen, device=gen.device)
+    cloud = torch.cat([base, torch.gather(base, 1, pick[..., None].expand(-1, -1, 3))], 1)
+    order = torch.argsort(torch.rand((bsz, n), generator=gen, device=gen.device), 1)
+    return torch.gather(cloud, 1, order[..., None].expand(-1, -1, 3)).contiguous()
+
+
+def _check(call, clouds, gen):
+    if call[0] == "fps":
+        return _check_fps(call, clouds, gen)
+    if call[0] == "knn":
+        return _check_knn(call, clouds)
+    return _check_chamfer(call, clouds, gen)
+
+
 def phase_kernels(clouds, card):
     """Kernel vs plain on the card at every path shape. Returns per-shape
     rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for call, bsz in kernel_shapes():
-        batch = clouds[:bsz]
-        if call[0] == "fps":
-            err, ms, plain_ms = _check_fps(call, batch, gen)
-        elif call[0] == "knn":
-            err, ms, plain_ms = _check_knn(call, batch)
-        else:
-            err, ms, plain_ms = _check_chamfer(call, batch, gen)
+        err, ms, plain_ms = _check(call, clouds[:bsz], gen)
         nbytes, ops = bound_parts(call, bsz)
         rows.append({"call": list(call), "batch": bsz, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bytes": nbytes, "ops": ops})
@@ -332,6 +362,61 @@ def phase_kernels(clouds, card):
               f"plain {plain_ms:.4f} ms, bound {bound_ms(nbytes, ops):.4f} ms "
               f"(B={bsz}; {card})", flush=True)
     return rows
+
+
+def phase_kernel_ties_and_edges(card):
+    """FPS and kNN vs plain on tie clouds at the big path shapes (batch B),
+    and at the edge shapes (batch B_EDGE) on random and on tie clouds; every
+    FPS variant must have run."""
+    from upp_torch.ops import fps_cuda
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = [("ties", call, tie_clouds(B, 8192, gen)) for call in TIE_CALLS]
+    for call in EDGE_CALLS:
+        n = max(call[1:3]) if call[0] == "knn" else call[1]
+        cases.append(("edge", call, torch.randn((B_EDGE, n, 3), generator=gen,
+                                                device=gen.device)))
+        cases.append(("edge ties", call, tie_clouds(B_EDGE, n, gen)))
+    for kind, call, clouds in cases:
+        err, ms, plain_ms = _check(call, clouds, gen)
+        print(f"[kernel {kind}] {call}: identical to plain, max_abs_err {err:.3g}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (B={clouds.shape[0]}; {card})", flush=True)
+    fps_n = {c[1] for c, _ in kernel_shapes() if c[0] == "fps"}
+    fps_n |= {c[1] for c in EDGE_CALLS if c[0] == "fps"}
+    variants = {n: fps_cuda.variant(n) for n in sorted(fps_n)}
+    print(f"[kernel variants] FPS variant by N: {variants}", flush=True)
+    if set(variants.values()) != set(range(fps_cuda.num_variants())):
+        raise AssertionError(f"FPS variants run {set(variants.values())}, of "
+                             f"{fps_cuda.num_variants()}")
+
+
+def phase_host_cost(clouds, card, reps=200):
+    """Host time per wrapper call at small shapes: the enqueue of ``reps``
+    calls on the host clock, the device time by CUDA events beside it."""
+    from upp_torch.ops import fps_cuda, knn_cuda
+    for call in HOST_CALLS:
+        if call[0] == "knn":
+            _, s, n, k, gather = call
+            points, query = clouds[:, :n].contiguous(), clouds[:, :s].contiguous()
+
+            def fn():
+                return knn_cuda.knn(query, points, k, gather)
+        else:
+            _, n, s, _ = call
+            xyz = clouds[:, :n].contiguous()
+
+            def fn():
+                return fps_cuda.fps_idx(xyz, s)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        dev_us = cuda_ms(fn, reps) * 1e3
+        print(f"[host] {call}: {host_us:.1f} us of host time per call ({reps} calls "
+              f"enqueued), {dev_us:.1f} us per call by CUDA events (B={clouds.shape[0]}; "
+              f"{card})", flush=True)
 
 
 def bound_ms(nbytes, ops):
@@ -376,6 +461,43 @@ def phase_knn_backward(clouds, card):
         print(f"[knn backward] {call}: max |grad diff| {err:.3g} (rtol 1e-5, atol 1e-6); "
               f"backward through the kernel's Function {times[0]:.4f} ms, through "
               f"knn_plain {times[1]:.4f} ms (B={B_PRETASK}; {card})", flush=True)
+
+
+def profile_steps(step, name, step_ms, card, steps=3, rows=10):
+    """``torch.profiler`` over ``steps`` steps: the device's busy time per
+    step (the self device time of its own events: kernels, copies, memsets),
+    the wall time per step, the idle share against both the profiled and the
+    unprofiled (``step_ms``) step, the FPS and kNN kernels' share, and the
+    largest rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events) / 1e3 / steps
+    if busy <= 0.0:
+        print(f"[{name} profile] the profiler saw no device time: busy time and idle "
+              "share not measured", flush=True)
+        return
+    fps_ms, knn_ms = (sum(dev_us(e) for e in events if kernel in e.key) / 1e3 / steps
+                      for kernel in ("fps_kernel", "knn_kernel"))
+    print(f"[{name} profile] {steps} steps: device busy {busy:.3f} ms/step (FPS kernels "
+          f"{fps_ms:.3f}, kNN kernels {knn_ms:.3f}); wall {wall_ms:.2f} ms/step profiled "
+          f"(idle share {1 - busy / wall_ms:.3f}), {step_ms:.2f} unprofiled (idle share "
+          f"{1 - busy / step_ms:.3f}) (B={B}; {card})", flush=True)
+    for e in events[:rows]:
+        print(f"[{name} profile]   {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
+              f"{e.count // steps:5d} calls/step  {e.key[:90]}", flush=True)
 
 
 def check_calls(name, rec, want):
@@ -556,14 +678,17 @@ def main() -> int:
     print(f"[build] fps.cu + knn.cu + chamfer.cu built in {time.time() - t0:.1f} s "
           f"({card})", flush=True)
     for name, lines in usage.items():
-        print(f"[ptxas] {name}.cu: {lines}", flush=True)
+        for kernel in lines.split("; "):
+            print(f"[ptxas] {name}.cu {kernel}", flush=True)
 
     clouds_np = synthetic_clouds(B)
     clouds = torch.from_numpy(clouds_np).to(device)
 
-    # 2. kernels vs plain, 3. kNN backward
+    # 2. kernels vs plain, ties and edges, host cost; 3. kNN backward
     with torch.inference_mode():
         rows = phase_kernels(clouds, card)
+        phase_kernel_ties_and_edges(card)
+        phase_host_cost(clouds, card)
     phase_knn_backward(clouds, card)
 
     config = cfg_from_yaml_file(CFG)
@@ -609,6 +734,7 @@ def main() -> int:
     print(f"[robust] launches of one step {robust_counts}; {robust_ms:.2f} ms/batch, "
           f"{B / robust_ms * 1e3:.1f} clouds/s, peak {peak_gib:.2f} GiB "
           f"(B={B}; {card})", flush=True)
+    profile_steps(lambda: robust_step(clouds, gen), "robust", robust_ms, card)
 
     # 6. card vs CPU
     small = clouds[:B_CPU]

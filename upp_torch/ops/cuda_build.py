@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each ``upp_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface and loaded with ``ctypes``. The
@@ -12,11 +12,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "upp_torch"
@@ -71,11 +74,43 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)       # atomic: a half-written library is never loaded
-        usage[name] = "; ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
-                                if "registers" in line or "spill" in line)
+        usage[name] = _ptxas_usage(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return usage
+
+
+def _ptxas_usage(log: str) -> str:
+    """'kernel: registers, stack frame, spills' for each kernel (each
+    template instance) in ptxas's ``-v`` report, names demangled where
+    ``c++filt`` exists."""
+    kernels = []                                    # [mangled name, report parts]
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernels.append([m.group(1), []])
+        elif kernels and ("registers" in line or "stack frame" in line):
+            kernels[-1][1].append(line.split(":", 1)[-1].strip() if "ptxas" in line
+                                  else line.strip())
+    names = [k[0] for k in kernels]
+    tool = shutil.which("c++filt")
+    if tool and names:
+        out = subprocess.run([tool, *names], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [re.sub(r"^void |\(anonymous namespace\)::|\(.*\)$", "", n) for n in out]
+    return "; ".join(f"{n}: {', '.join(parts)}" for n, (_, parts) in zip(names, kernels))
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``, a kernel's C entry point, on ``device``'s current
+    stream; returns its CUDA error code. The device is switched only when it
+    is not the current one, and the raw stream handle comes without building
+    a ``torch.cuda.Stream`` (several µs a call)."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def load(name: str) -> ctypes.CDLL:

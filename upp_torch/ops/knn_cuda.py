@@ -5,35 +5,35 @@ that requires one, so gradients go through ``ops.knn``'s autograd Function,
 which calls it. ``ops.knn`` sends CPU tensors to the plain PyTorch version
 instead. The library is built at first use (see ``cuda_build``), never at
 import.
+
+The kernel runs a warp per query, 8 queries per block, over its cloud staged
+in shared memory; one variant serves every shape within the limits below.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_build
 
-MAX_K = 32       # csrc/knn.cu kMaxK: the sorted list lives in registers
+MAX_K = 32       # csrc/knn.cu kMaxK: one kept key per lane of the query's warp
 MAX_N = 16384    # csrc/knn.cu kMaxN: the cloud is staged in shared memory
 
 
-def _fn():
-    fn = cuda_build.load("knn").upp_knn
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _error(code: int) -> str:
-    fn = cuda_build.load("knn").upp_knn_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn(code).decode()
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("knn")
+    lib.upp_knn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p]
+    lib.upp_knn.restype = ctypes.c_int
+    lib.upp_knn_error_string.argtypes = [ctypes.c_int]
+    lib.upp_knn_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def knn(query: torch.Tensor, points: torch.Tensor, k: int, gather: bool
@@ -66,13 +66,12 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, gather: bool
     idx = torch.empty((B, S, k), dtype=torch.int32, device=dev)
     nbr = (torch.empty((B, S, k, 3), dtype=torch.float32, device=dev)
            if gather else None)
-    fn = _fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(query.data_ptr(), points.data_ptr(), B, S, N, k, d.data_ptr(),
-                 idx.data_ptr(), nbr.data_ptr() if gather else None, stream)
+    err = cuda_build.launch(_lib().upp_knn, dev, query.data_ptr(), points.data_ptr(), B, S,
+                            N, k, d.data_ptr(), idx.data_ptr(),
+                            nbr.data_ptr() if gather else None)
     if err != 0:
-        raise RuntimeError(f"knn kernel launch failed: {_error(err)} ({err})")
+        msg = _lib().upp_knn_error_string(err).decode()
+        raise RuntimeError(f"knn kernel launch failed: {msg} ({err})")
     knn.launches += 1
     return d, idx, nbr
 
