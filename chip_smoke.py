@@ -11,11 +11,14 @@ Phases, each fatal on failure:
      every shape the paths give it (classification shapes at batch 120,
      pretask shapes at batch 64): FPS indices equal, kNN indices equal and
      distances within 1e-6 (gathered xyz equal), Chamfer indices equal and
-     distances within 1e-6 with and without validity masks; time kernel and
-     plain. Then FPS and kNN again on grid-quantized clouds full of repeated
-     points (real ties) at the big path shapes, and at the edge shapes of
-     their limits on random and tie clouds, with every FPS variant run; and
-     the host time per wrapper call at two small shapes;
+     distances bit-equal with and without validity masks (one cloud with no
+     valid target each way); time kernel and plain. Then all three again on
+     grid-quantized clouds full of repeated points (real ties) at the big
+     path shapes, and at edge shapes (kNN and FPS at their limits; Chamfer
+     at N=1, M=1 and N or M far the larger) on random and tie clouds, with
+     every FPS variant and every Chamfer variant (role, mask) run; the host
+     time per wrapper call at three small shapes; and ``torch.cdist`` + min
+     as a yardstick beside the Chamfer kernel at (2048, 8192);
   3. kNN backward: gradients to query and points through the kernel's
      autograd Function against autograd through ``knn_plain`` (rtol 1e-5,
      atol 1e-6) at the pretask's gradient shapes; time both backwards;
@@ -25,7 +28,7 @@ Phases, each fatal on failure:
      lidar, +24 shell points) then the 3-pass ``PointMAEUnify`` at full
      width, batch 120: finite logits, launch counts of one step, time; then
      ``torch.profiler`` over 3 steps: device-busy ms per step, idle share,
-     the FPS and kNN kernels' device time;
+     the FPS, kNN and Chamfer kernels' device time;
   6. card vs CPU: the same weights and corrupted input at batch 8 through
      the kernels on the card and the plain versions on the CPU: logits
      within rtol 1e-3 / atol 2e-3, equal argmax;
@@ -35,7 +38,9 @@ Phases, each fatal on failure:
      changed and frozen ones bit-unchanged, launch counts of one step, time
      per step, peak memory;
   8. pretask eval: ``make_pretask_eval_step`` (easy crop, viewpoint
-     (1,1,1)) at batch 64: finite CDs and F-score, launch counts, time;
+     (1,1,1)) at batch 64: finite CDs and F-score, launch counts, time; then
+     ``torch.profiler`` over 3 steps, as for the robust step (with the
+     Chamfer kernels' device time);
   9. pretask card vs CPU: one train step at batch 4 from the same weights
      and draws, dropout and drop-path off: the four loss terms within
      rtol 1e-3 / atol 2e-3, the trainable gradients' global norm within
@@ -109,7 +114,7 @@ PRETASK_TRAIN_CALLS = Counter({
     # losses: coarse vs crop, rebuild vs crop, partial+rebuild vs gt
     ("chamfer", 32, 1024, False): 1, ("chamfer", 1024, 1024, False): 1,
     ("chamfer", 2048, 8192, False): 1,
-})   # a Chamfer call is two launches, one per direction
+})   # a Chamfer call is two launches: the fused pass and the unpack
 PRETASK_EVAL_CALLS = Counter({
     ("fps", 8192, 1024, True): 1,             # easy crop, partial half
     ("fps", 1024, 128, False): 1,             # partial centers
@@ -121,16 +126,25 @@ PRETASK_EVAL_CALLS = Counter({
 KNN_GRAD_CALLS = (("knn", 32, 32, 6, False), ("knn", 32, 1024, 16, True))
 # path shapes held to the plain versions again on grid-quantized clouds full
 # of repeated points (every squared distance exact: real ties), at batch B
+# (Chamfer at B_PRETASK)
 TIE_CALLS = (("knn", 64, 1024, 32, True), ("knn", 32, 1096, 16, True),
-             ("fps", 8192, 1024, True), ("fps", 1228, 1024, False))
+             ("fps", 8192, 1024, True), ("fps", 1228, 1024, False),
+             ("chamfer", 2048, 8192, False), ("chamfer", 160, 8192, False))
 # the kernels' limits and, with the path shapes, every FPS variant (csrc/fps.cu
-# chooses one by N), on random clouds and on tie clouds, at batch B_EDGE
+# chooses one by N) and both Chamfer roles (ops/chamfer_cuda.py::launch_plan
+# makes the larger cloud resident), on random clouds and on tie clouds, at
+# batch B_EDGE; every Chamfer check also runs masked, with one cloud whose
+# targets are all invalid in each direction
 B_EDGE = 8
 EDGE_CALLS = (("knn", 64, 16384, 32, True), ("knn", 37, 16, 16, True),
               ("knn", 1, 1024, 32, True), ("knn", 100, 1096, 16, False),
               ("fps", 16384, 1024, True), ("fps", 16384, 256, False),
-              ("fps", 3000, 512, False), ("fps", 100, 64, False), ("fps", 20, 20, True))
-HOST_CALLS = (("knn", 64, 32, 8, False), ("fps", 64, 32, False))   # host cost per call
+              ("fps", 3000, 512, False), ("fps", 100, 64, False), ("fps", 20, 20, True),
+              ("chamfer", 1, 1000, False), ("chamfer", 1000, 1, False),
+              ("chamfer", 37, 1000, False), ("chamfer", 1000, 37, False),
+              ("chamfer", 16384, 2048, False))
+HOST_CALLS = (("knn", 64, 32, 8, False), ("fps", 64, 32, False),
+              ("chamfer", 32, 1024, False))   # host cost per call
 KERNEL_SOURCES = {
     "fps": ("upp_torch/csrc/fps.cu", "upp_tpu/ops/fps_pallas.py:38"),
     "knn": ("upp_torch/csrc/knn.cu", "upp_tpu/ops/knn_pallas.py:48"),
@@ -228,8 +242,8 @@ def bound_parts(call, bsz):
     outputs written once; 10 float32 operations per (point, round) of FPS
     (3 sub, 3 mul, 2 add, min, compare), per (query, point) pair of kNN
     (3 sub, 3 mul, 2 add, compare against the k-th, plus the select) and per
-    (x, y) pair of Chamfer (3 sub, 3 mul, 2 add, one compare and select in
-    each direction; a pair is evaluated once in the least work)."""
+    (x, y) pair of Chamfer (3 sub, 3 mul, 2 add, one minimum in each
+    direction; a pair is evaluated once in the least work)."""
     if call[0] == "fps":
         _, n, s, masked = call
         nbytes = bsz * n * 12 + bsz * s * 4 + (bsz * n + bsz * 4 if masked else 0)
@@ -300,9 +314,14 @@ def _check_knn(call, clouds):
     return err, ms, plain_ms
 
 
+CHAMFER_VARIANTS_RUN = set()   # (y resident, masked) of every Chamfer check
+
+
 def _check_chamfer(call, clouds, gen):
     """x: the next cloud's first N points (another shape), y: the cloud's
-    first M points; unmasked and with random validity masks."""
+    first M points; unmasked and with random validity masks, under which
+    the first cloud has no valid y and the last no valid x. Indices equal,
+    distances bit-equal."""
     from upp_torch.ops import chamfer_cuda
     from upp_torch.ops.chamfer import nn_both_plain
     _, n, m, _ = call
@@ -311,20 +330,26 @@ def _check_chamfer(call, clouds, gen):
     bsz = clouds.shape[0]
     vx = torch.rand((bsz, n), generator=gen, device=x.device) > 0.2
     vy = torch.rand((bsz, m), generator=gen, device=x.device) > 0.2
+    vy[0] = False
+    vx[-1] = False
+    swap = chamfer_cuda.launch_plan(bsz, n, m).swap
     err = 0.0
     for masks in ((None, None), (vx, vy)):
+        masked = masks[0] is not None
         got = chamfer_cuda.nn_both(x, y, *masks)
         want = nn_both_plain(x, y, *masks)
         torch.cuda.synchronize()
         for name, g, w in zip(("i1", "i2"), got[1::2], want[1::2]):
             if not torch.equal(g.long(), w):
                 bad = (g.long() != w).sum().item()
-                raise AssertionError(f"Chamfer {call} masked={masks[0] is not None}: "
+                raise AssertionError(f"Chamfer {call} masked={masked}: "
                                      f"{bad} {name} differ from the plain version")
         e = max((g - w).abs().max().item() for g, w in zip(got[0::2], want[0::2]))
-        if e > 1e-6:
-            raise AssertionError(f"Chamfer {call}: distances differ by {e} > 1e-6")
+        if not all(torch.equal(g, w) for g, w in zip(got[0::2], want[0::2])):
+            raise AssertionError(f"Chamfer {call} masked={masked}: distances not bit-equal "
+                                 f"(max difference {e})")
         err = max(err, e)
+        CHAMFER_VARIANTS_RUN.add((swap, masked))
     ms = cuda_ms(lambda: chamfer_cuda.nn_both(x, y), reps=10)
     plain_ms = cuda_ms(lambda: nn_both_plain(x, y), reps=2, warmup=1)
     return err, ms, plain_ms
@@ -365,14 +390,16 @@ def phase_kernels(clouds, card):
 
 
 def phase_kernel_ties_and_edges(card):
-    """FPS and kNN vs plain on tie clouds at the big path shapes (batch B),
-    and at the edge shapes (batch B_EDGE) on random and on tie clouds; every
-    FPS variant must have run."""
+    """FPS, kNN and Chamfer vs plain on tie clouds at the big path shapes
+    (batch B, Chamfer B_PRETASK), and at the edge shapes (batch B_EDGE) on
+    random and on tie clouds; every FPS variant and every Chamfer variant
+    (role and mask) must have run."""
     from upp_torch.ops import fps_cuda
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    cases = [("ties", call, tie_clouds(B, 8192, gen)) for call in TIE_CALLS]
+    cases = [("ties", call, tie_clouds(B_PRETASK if call[0] == "chamfer" else B, 8192, gen))
+             for call in TIE_CALLS]
     for call in EDGE_CALLS:
-        n = max(call[1:3]) if call[0] == "knn" else call[1]
+        n = max(call[1:3]) if call[0] in ("knn", "chamfer") else call[1]
         cases.append(("edge", call, torch.randn((B_EDGE, n, 3), generator=gen,
                                                 device=gen.device)))
         cases.append(("edge ties", call, tie_clouds(B_EDGE, n, gen)))
@@ -387,12 +414,34 @@ def phase_kernel_ties_and_edges(card):
     if set(variants.values()) != set(range(fps_cuda.num_variants())):
         raise AssertionError(f"FPS variants run {set(variants.values())}, of "
                              f"{fps_cuda.num_variants()}")
+    print(f"[kernel variants] Chamfer (y resident, masked) run: "
+          f"{sorted(CHAMFER_VARIANTS_RUN)}", flush=True)
+    if CHAMFER_VARIANTS_RUN != {(s, m) for s in (False, True) for m in (False, True)}:
+        raise AssertionError(f"Chamfer variants run {sorted(CHAMFER_VARIANTS_RUN)}, of 4")
+
+
+def phase_chamfer_yardstick(clouds, card):
+    """``torch.cdist`` then a minimum over each axis at (2048, 8192), batch
+    B_PRETASK: not one call computing the same function (its distances are
+    not the kernel's arithmetic, and it keeps the [B, N, M] matrix), so a
+    yardstick printed here and not the ``library_ms`` of the kernels line."""
+    from upp_torch.ops import chamfer_cuda
+    x = torch.roll(clouds[:B_PRETASK], 1, 0)[:, :2048].contiguous()
+    y = clouds[:B_PRETASK, :8192].contiguous()
+
+    def cdist_min():
+        d = torch.cdist(x, y)
+        return d.min(2), d.min(1)
+    ms = cuda_ms(cdist_min, reps=5)
+    kernel_ms = cuda_ms(lambda: chamfer_cuda.nn_both(x, y), reps=10)
+    print(f"[chamfer yardstick] (2048, 8192): torch.cdist + min over each axis {ms:.4f} ms, "
+          f"the kernel {kernel_ms:.4f} ms (CUDA events; B={B_PRETASK}; {card})", flush=True)
 
 
 def phase_host_cost(clouds, card, reps=200):
     """Host time per wrapper call at small shapes: the enqueue of ``reps``
     calls on the host clock, the device time by CUDA events beside it."""
-    from upp_torch.ops import fps_cuda, knn_cuda
+    from upp_torch.ops import chamfer_cuda, fps_cuda, knn_cuda
     for call in HOST_CALLS:
         if call[0] == "knn":
             _, s, n, k, gather = call
@@ -400,6 +449,12 @@ def phase_host_cost(clouds, card, reps=200):
 
             def fn():
                 return knn_cuda.knn(query, points, k, gather)
+        elif call[0] == "chamfer":
+            _, n, m, _ = call
+            x, y = clouds[:, :n].contiguous(), clouds[:, :m].contiguous()
+
+            def fn():
+                return chamfer_cuda.nn_both(x, y)
         else:
             _, n, s, _ = call
             xyz = clouds[:, :n].contiguous()
@@ -463,12 +518,15 @@ def phase_knn_backward(clouds, card):
               f"knn_plain {times[1]:.4f} ms (B={B_PRETASK}; {card})", flush=True)
 
 
-def profile_steps(step, name, step_ms, card, steps=3, rows=10):
+CHAMFER_KERNELS = ("nn_fused_kernel", "unpack_kernel")
+
+
+def profile_steps(step, name, step_ms, card, bsz=B, steps=3, rows=10):
     """``torch.profiler`` over ``steps`` steps: the device's busy time per
     step (the self device time of its own events: kernels, copies, memsets),
     the wall time per step, the idle share against both the profiled and the
-    unprofiled (``step_ms``) step, the FPS and kNN kernels' share, and the
-    largest rows."""
+    unprofiled (``step_ms``) step, the FPS, kNN and Chamfer kernels' share,
+    and the largest rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -489,12 +547,14 @@ def profile_steps(step, name, step_ms, card, steps=3, rows=10):
         print(f"[{name} profile] the profiler saw no device time: busy time and idle "
               "share not measured", flush=True)
         return
-    fps_ms, knn_ms = (sum(dev_us(e) for e in events if kernel in e.key) / 1e3 / steps
-                      for kernel in ("fps_kernel", "knn_kernel"))
+    fps_ms, knn_ms, chamfer_ms = (
+        sum(dev_us(e) for e in events if any(k in e.key for k in kernels)) / 1e3 / steps
+        for kernels in (("fps_kernel",), ("knn_kernel",), CHAMFER_KERNELS))
     print(f"[{name} profile] {steps} steps: device busy {busy:.3f} ms/step (FPS kernels "
-          f"{fps_ms:.3f}, kNN kernels {knn_ms:.3f}); wall {wall_ms:.2f} ms/step profiled "
-          f"(idle share {1 - busy / wall_ms:.3f}), {step_ms:.2f} unprofiled (idle share "
-          f"{1 - busy / step_ms:.3f}) (B={B}; {card})", flush=True)
+          f"{fps_ms:.3f}, kNN kernels {knn_ms:.3f}, Chamfer kernels {chamfer_ms:.3f}); wall "
+          f"{wall_ms:.2f} ms/step profiled (idle share {1 - busy / wall_ms:.3f}), "
+          f"{step_ms:.2f} unprofiled (idle share {1 - busy / step_ms:.3f}) (B={bsz}; {card})",
+          flush=True)
     for e in events[:rows]:
         print(f"[{name} profile]   {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}", flush=True)
@@ -608,6 +668,7 @@ def phase_pretask(clouds, config, card, device):
     print(f"[pretask eval] launches {eval_counts}; "
           + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
           + f"; {eval_ms:.2f} ms/batch (B={B_PRETASK}; {card})", flush=True)
+    profile_steps(lambda: eval_step(gt, vp), "pretask eval", eval_ms, card, bsz=B_PRETASK)
     return counts
 
 
@@ -689,6 +750,7 @@ def main() -> int:
         rows = phase_kernels(clouds, card)
         phase_kernel_ties_and_edges(card)
         phase_host_cost(clouds, card)
+        phase_chamfer_yardstick(clouds, card)
     phase_knn_backward(clouds, card)
 
     config = cfg_from_yaml_file(CFG)

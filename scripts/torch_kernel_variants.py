@@ -1,10 +1,11 @@
-"""Time design alternatives of the port's FPS and kNN kernels on a CUDA card.
+"""Time design alternatives of the port's FPS, kNN and Chamfer kernels on a
+CUDA card.
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [fps] [knn] [chamfer] [--parent DIR]
 
-Each alternative is the committed source (``upp_torch/csrc/{fps,knn}.cu``)
-with one change, made here by text substitution and built with the port's
-own ``nvcc`` flags into ``build/upp_torch/variants/``:
+Each alternative is the committed source (``upp_torch/csrc/*.cu``) with one
+change, made here by text substitution and built with the port's own
+``nvcc`` flags into ``build/upp_torch/variants/``:
 
   fps  shuffle      the warp argmax as a five-step ``__shfl_xor_sync``
                     butterfly on the packed 64-bit key (committed:
@@ -16,16 +17,32 @@ own ``nvcc`` flags into ``build/upp_torch/variants/``:
   knn  no-cap       one block per 8 queries whatever S (committed: at most
                     kMaxBlocks blocks, warps looping over queries);
   knn  merge-first  the first flush merged into the empty kept list too
-                    (committed: the sorted candidates taken as they are).
+                    (committed: the sorted candidates taken as they are);
+  chamfer kR8, T256, kC8, stage1024
+                    8 resident points a thread, 256 threads a block, 8
+                    swept points a step, 1024-point stages (committed: 4,
+                    128, 4, 512); with the committed, kR8 and T256 also
+                    under launch plans of 1024 and 4096 target blocks;
+  chamfer shfl-min  the column's warp minimum by a ``__shfl_xor_sync``
+                    butterfly (committed: ``redux.sync``);
+  chamfer probes    no-column-index, no-column, no-row-index: a part of the
+                    work left out, to show its cost (outputs not checked).
 
 At the robust path's shapes (batch 120, the synthetic clouds of
-``chip_smoke.py``) every alternative must give the committed kernel's
-indices; then committed and alternative are timed in turns (committed,
-alternative, alternative, committed) by ``torch.profiler``'s device time of
-the kernel, mean of 20 launches each. First it prints the committed
-kernels' device time at every FPS and kNN shape of ``chip_smoke.py``'s
-paths, which CUDA events cannot show where the wrapper's host cost is the
-longer.
+``chip_smoke.py``; Chamfer at the pretask shapes, batch 64) every
+alternative must give the committed kernel's outputs; then committed and
+alternative are timed in turns (committed, alternative, alternative,
+committed) by ``torch.profiler``'s device time, mean of 20 launches each
+(Chamfer: every device event of a call, the key reset included). First it
+prints the committed kernels' device time at every shape of
+``chip_smoke.py``'s paths, which CUDA events cannot show where the
+wrapper's host cost is the longer.
+
+``--parent DIR`` names an unpacked checkout of an earlier commit (for
+example ``git archive <commit> | tar -x -C build/parent``): its Chamfer
+kernel and wrapper are timed against the committed ones in the same turns,
+through both wrappers by CUDA events too, and swapped into the pretask eval
+and train steps to compare their device-busy time.
 """
 
 from __future__ import annotations
@@ -33,6 +50,8 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+import types
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -110,8 +129,9 @@ def device_us(fn, reps=20):
                if e.device_type == DeviceType.CUDA and "_kernel" in e.key) / reps
 
 
-def in_turns(committed, variant):
-    t = [device_us(f) for f in (committed, variant, variant, committed)]
+def in_turns(committed, variant, timer=None):
+    timer = timer or device_us
+    t = [timer(f) for f in (committed, variant, variant, committed)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
@@ -119,7 +139,7 @@ def committed_device_times(clouds, gen, card):
     """Device µs per launch of the committed kernels, through their
     wrappers, at every FPS and kNN shape of the paths."""
     from chip_smoke import kernel_shapes
-    from upp_torch.ops import fps_cuda, knn_cuda
+    from upp_torch.ops import chamfer_cuda, fps_cuda, knn_cuda
     from upp_torch.ops.corrupt import _crop_masks
     for call, bsz in kernel_shapes():
         batch = clouds[:bsz]
@@ -141,6 +161,10 @@ def committed_device_times(clouds, gen, card):
             def fn():
                 return fps_cuda.fps_idx(xyz, s, valid, start)
         else:
+            _, n, m, _ = call
+            x, y = torch.roll(batch, 1, 0)[:, :n].contiguous(), batch[:, :m].contiguous()
+            print(f"[device] {call}: {chamfer_device_us(lambda: chamfer_cuda.nn_both(x, y)):.1f} "
+                  f"us per call, key reset + fused + unpack (B={bsz}; {card})", flush=True)
             continue
         print(f"[device] {call}: {device_us(fn):.1f} us per launch (B={bsz}; {card})",
               flush=True)
@@ -227,19 +251,238 @@ def knn_variants(clouds, card):
                   f"{name} {v:.1f} us (B={B}; {card})", flush=True)
 
 
+CHAMFER_SHAPES = ((32, 1024), (1024, 1024), (2048, 8192), (160, 8192))
+B_CHAMFER = 64
+# exact alternatives (each must give the committed kernel's outputs), then
+# probes that drop a part of the work to show its cost (their outputs differ)
+CHAMFER_EXACT = {
+    "kR8": (("constexpr int kR = 4;", "constexpr int kR = 8;"),
+            ("constexpr int kTileR = 512;", "constexpr int kTileR = 1024;"),
+            ("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 2)")),
+    "T256": (("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
+             ("constexpr int kTileR = 512;", "constexpr int kTileR = 1024;"),
+             ("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 2)")),
+    "kC8": (("constexpr int kC = 4;", "constexpr int kC = 8;"),),
+    "stage1024": (("constexpr int kStage = 512;", "constexpr int kStage = 1024;"),),
+    "shfl-min": (("const float m = __uint_as_float(__reduce_min_sync(kFull, __float_as_uint(low)));",
+                  "float m = low;\n#pragma unroll\n        for (int o = 16; o > 0; o >>= 1) "
+                  "m = fminf(m, __shfl_xor_sync(kFull, m, o));"),),
+}
+CHAMFER_PROBES = {
+    "no-column-index": (("key[c] = pack(m, __reduce_min_sync(kFull, cand));",
+                         "key[c] = pack(m, cand);"),),
+    "no-column": (("for (int c = 0; c < kC; ++c) {\n        float v[kR];",
+                   "for (int c = 0; c < 0; ++c) {\n        float v[kR];"),),
+    "no-row-index": (("step[i] = nb < best[i] ? j0 : step[i];", ""),),
+}
+CHAMFER_TARGETS = (1024, 4096)
+
+
+def chamfer_device_us(fn, reps=20):
+    """Device µs per call: every device event of the window (the fused and
+    unpack kernels and the key reset, or the two direction kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps
+
+
+def parent_chamfer(parent_dir):
+    """The parent's Chamfer library and wrapper, from an unpacked checkout of
+    the parent commit: its ``chamfer.cu`` built with this tree's flags, its
+    ``chamfer_cuda.py`` loaded against that library."""
+    root = Path(parent_dir) / "upp_torch"
+    lib = build("chamfer_parent", (root / "csrc" / "chamfer.cu").read_text())
+    text = (root / "ops" / "chamfer_cuda.py").read_text()
+    if text.count("from . import cuda_build") != 1:
+        raise RuntimeError("parent chamfer_cuda.py: no single 'from . import cuda_build'")
+    module = types.ModuleType("parent_chamfer_cuda")
+    module.cuda_build = types.SimpleNamespace(load=lambda name: lib)
+    exec(compile(text.replace("from . import cuda_build", ""), "parent_chamfer_cuda.py", "exec"),
+         module.__dict__)
+    return lib, module.nn_both
+
+
+def chamfer_variants(clouds, card, parent_dir):
+    """At the Chamfer path shapes (batch 64, unmasked): the committed kernel
+    against the parent's (``parent_dir``, if given) through both wrappers by
+    CUDA events and by device time, then design alternatives, launch plans
+    and probes by device time, in turns."""
+    from upp_torch.ops import chamfer_cuda
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    alts = {}
+    for name, edits in {**CHAMFER_EXACT, **CHAMFER_PROBES}.items():
+        fn = build(f"chamfer_{name}", substituted("chamfer", *edits)).upp_chamfer_nn_both
+        fn.argtypes = [ptr] * 4 + [i32] * 6 + [ptr] * 6
+        alts[name] = fn
+    parent_lib = parent_wrapper = None
+    if parent_dir:
+        parent_lib, parent_wrapper = parent_chamfer(parent_dir)
+    committed = chamfer_cuda._lib().upp_chamfer_nn_both
+    batch = clouds[:B_CHAMFER]
+    for n, m in CHAMFER_SHAPES:
+        x = torch.roll(batch, 1, 0)[:, :n].contiguous()
+        y = batch[:, :m].contiguous()
+        dev = x.device
+        outs = [[torch.empty((B_CHAMFER, n), device=dev),
+                 torch.empty((B_CHAMFER, n), dtype=torch.int32, device=dev),
+                 torch.empty((B_CHAMFER, m), device=dev),
+                 torch.empty((B_CHAMFER, m), dtype=torch.int32, device=dev)] for _ in range(2)]
+        keys = torch.empty(B_CHAMFER * (n + m), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(fn, out, plan=None):
+            plan = plan or chamfer_cuda.launch_plan(B_CHAMFER, n, m)
+
+            def go():
+                err = fn(x.data_ptr(), y.data_ptr(), None, None, B_CHAMFER, n, m,
+                         int(plan.swap), plan.splits, plan.split_len, keys.data_ptr(),
+                         *[t.data_ptr() for t in out], stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed ({err})")
+            return go
+
+        base = run(committed, outs[0])
+        base()
+        cases = []
+        if parent_lib is not None:
+            parent_fn = parent_lib.upp_chamfer_nn_both
+
+            def parent():
+                err = parent_fn(x.data_ptr(), y.data_ptr(), None, None, B_CHAMFER, n, m,
+                                *[t.data_ptr() for t in outs[1]], stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed ({err})")
+            cases.append(("parent", parent, True))
+            mine = lambda: chamfer_cuda.nn_both(x, y)  # noqa: E731
+            theirs = lambda: parent_wrapper(x, y)      # noqa: E731
+            got, want = mine(), theirs()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"chamfer ({n}, {m}): outputs differ from the parent's")
+            t = [events_ms(f) for f in (mine, theirs, theirs, mine)]
+            print(f"[chamfer wrapper] ({n}, {m}): committed {(t[0] + t[3]) / 2:.4f} ms, parent "
+                  f"{(t[1] + t[2]) / 2:.4f} ms a call through each wrapper, CUDA events "
+                  f"(B={B_CHAMFER}; {card})", flush=True)
+        for name in alts:
+            cases.append((name, run(alts[name], outs[1]), name in CHAMFER_EXACT))
+        for target in CHAMFER_TARGETS:
+            plan = plan_with_target(B_CHAMFER, n, m, target)
+            for name in ("committed", "kR8", "T256"):
+                fn = committed if name == "committed" else alts[name]
+                cases.append((f"{name} target {target} (splits {plan.splits})",
+                              run(fn, outs[1], plan), True))
+        for name, fn, exact in cases:
+            for t in outs[1]:
+                t.fill_(-1)
+            fn()
+            torch.cuda.synchronize()
+            if exact and not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"chamfer {name} at ({n}, {m}): outputs differ")
+            c, v = in_turns(base, fn, chamfer_device_us)
+            print(f"[chamfer variant] ({n}, {m}): committed {c:.1f} us, {name} {v:.1f} us"
+                  f"{'' if exact else ' (probe: outputs not checked)'} (B={B_CHAMFER}; {card})",
+                  flush=True)
+
+
+def chamfer_steps(clouds, card, parent_dir, steps=5):
+    """Device-busy ms of the pretask eval and train steps (batch 64) with
+    the committed Chamfer wrapper and with the parent's swapped in for it,
+    in turns, and the Chamfer kernels' share of each: ``torch.profiler``
+    over ``steps`` steps after one unprofiled step."""
+    from chip_smoke import B_PRETASK, PRETASK_CFG, pretask_setup
+    from upp_torch.ops import chamfer_cuda
+    from upp_torch.utils.config import cfg_from_yaml_file
+    _, parent_wrapper = parent_chamfer(parent_dir)
+    config = cfg_from_yaml_file(PRETASK_CFG)
+    _, _, train_step, eval_step = pretask_setup(config, clouds.device)
+    gt = clouds[:B_PRETASK]
+    vp = torch.tensor((1.0, 1.0, 1.0))
+    committed = chamfer_cuda.nn_both
+
+    def is_chamfer(key):
+        return any(k in key for k in ("nn_fused_kernel", "unpack_kernel")) or (
+            "nn_kernel" in key and "knn_kernel" not in key)
+
+    def busy(step, wrapper):
+        chamfer_cuda.nn_both = wrapper
+        try:
+            step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+        finally:
+            chamfer_cuda.nn_both = committed
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("Optimizer.")]
+        total = sum(e.self_device_time_total for e in events) / 1e3 / steps
+        mine = sum(e.self_device_time_total for e in events if is_chamfer(e.key)) / 1e3 / steps
+        return total, mine
+
+    for name, step in (("pretask eval", lambda: eval_step(gt, vp)),
+                       ("pretask train", lambda: train_step(gt))):
+        runs = [busy(step, w) for w in (committed, parent_wrapper, parent_wrapper, committed)]
+        print(f"[chamfer steps] {name}: device busy ms/step committed {runs[0][0]:.3f}, "
+              f"{runs[3][0]:.3f}; parent {runs[1][0]:.3f}, {runs[2][0]:.3f}; of it Chamfer "
+              f"kernels committed {runs[0][1]:.3f}, {runs[3][1]:.3f}; parent {runs[1][1]:.3f}, "
+              f"{runs[2][1]:.3f} (B={B_PRETASK}; {card})", flush=True)
+
+
+def events_ms(fn, reps=20):
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def plan_with_target(B, n, m, target):
+    from upp_torch.ops import chamfer_cuda
+    saved = chamfer_cuda.TARGET_BLOCKS
+    chamfer_cuda.TARGET_BLOCKS = target
+    try:
+        return chamfer_cuda.launch_plan.__wrapped__(B, n, m)
+    finally:
+        chamfer_cuda.TARGET_BLOCKS = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: needs a CUDA card", file=sys.stderr)
         return 1
     from chip_smoke import card_line, synthetic_clouds
+    args = sys.argv[1:]
+    parent_dir = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent_dir = args[i + 1]
+        del args[i:i + 2]
+    kernels = set(args) or {"fps", "knn", "chamfer"}
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     clouds = torch.from_numpy(synthetic_clouds(B)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         committed_device_times(clouds, gen, card)
-        fps_variants(clouds, gen, card)
-        knn_variants(clouds, card)
+        if "fps" in kernels:
+            fps_variants(clouds, gen, card)
+        if "knn" in kernels:
+            knn_variants(clouds, card)
+        if "chamfer" in kernels:
+            chamfer_variants(clouds, card, parent_dir)
+    if "chamfer" in kernels and parent_dir:
+        chamfer_steps(clouds, card, parent_dir)
     return 0
 
 

@@ -18,7 +18,7 @@ import torch
 
 from upp_tpu.ops.fps_pallas import fps_pallas
 from upp_tpu.ops.knn_pallas import _knn_gather_fwd_impl
-from upp_torch.ops import fps_cuda, knn_cuda
+from upp_torch.ops import chamfer_cuda, fps_cuda, knn_cuda
 from upp_torch.ops.fps import fps_plain_idx
 from upp_torch.ops.knn import knn, knn_plain, knn_points
 
@@ -82,7 +82,10 @@ def test_knn_ties_index_exact_vs_pallas(case):
 
 @pytest.mark.parametrize("source,constant,wrapper", [
     ("knn.cu", "kMaxK", knn_cuda.MAX_K), ("knn.cu", "kMaxN", knn_cuda.MAX_N),
-    ("fps.cu", "kMaxN", fps_cuda.MAX_N)])
+    ("fps.cu", "kMaxN", fps_cuda.MAX_N), ("chamfer.cu", "kMaxB", chamfer_cuda.MAX_B),
+    ("chamfer.cu", "kMaxPoints", chamfer_cuda.MAX_POINTS),
+    ("chamfer.cu", "kMaxSplits", chamfer_cuda.MAX_SPLITS),
+    ("chamfer.cu", "kTileR", chamfer_cuda.TILE_R)])
 def test_wrapper_limits_equal_the_cuda_sources(source, constant, wrapper):
     text = (CSRC / source).read_text()
     found = re.findall(rf"constexpr int {constant} = (\d+);", text)
