@@ -21,7 +21,8 @@ Phases, each fatal on failure:
      as a yardstick beside the Chamfer kernel at (2048, 8192);
   3. kNN backward: gradients to query and points through the kernel's
      autograd Function against autograd through ``knn_plain`` (rtol 1e-5,
-     atol 1e-6) at the pretask's gradient shapes; time both backwards;
+     atol 1e-6) at the pretask's (batch 64) and the cls train step's
+     (batch 120) gradient shapes; time both backwards;
   4. clean eval: ``make_eval_step`` (FPS 8192→1024, downstream pass, argmax)
      at full width on 120 synthetic 8192-point clouds, seeded weights;
   5. robust inference: ``corrupt_batch`` (viewpoint crop 8192→1024, +48
@@ -44,16 +45,44 @@ Phases, each fatal on failure:
   9. pretask card vs CPU: one train step at batch 4 from the same weights
      and draws, dropout and drop-path off: the four loss terms within
      rtol 1e-3 / atol 2e-3, the trainable gradients' global norm within
-     rtol 1e-2.
-Launch counts are reset right before each path run (4, 5, 7, 8) and read
-right after; the kernel-vs-plain comparisons do not count. Before the last
-line it prints the ``kernels`` JSON line and the card's name and power
-limit; the last line is the ``{"ok": true, "device": ...}`` JSON object.
+     rtol 1e-2;
+ 10. cls train, PEFT stage: 3 steps of ``runner_cls.make_train_step`` on
+     ``cfgs/unify_synthetic_cls.yaml`` at full width, batch 120 (the
+     ``total_bs`` of ``cfgs/unify_modelnet_cls.yaml``), with ``PEFT_LIST``:
+     finite loss and accuracy, every trainable tensor the step reaches
+     changed and every other one bit-unchanged, the launch counts of one
+     step (its forward is the robust step's), no kNN backward, ms per step
+     and clouds/s (mean of 10 steps after a warm-up), peak memory, and a
+     ``torch.profiler`` profile over 3 steps;
+ 11. cls train, joint stage: ``JOINT_PEFT_LIST`` switched in on the live
+     optimizer: the kNN backward runs (its calls by shape, each timed alone
+     in phase 3), the head is bit-unchanged by a step, the rectify
+     prompter moves; ms per step, peak memory and a profile, in which each
+     ``KnnKernel.backward`` call is a ``knn_backward`` range: its calls and
+     the device time of what it launched, per step;
+ 12. cls train card vs CPU: one step at batch 8 in each stage from the same
+     weights and draws (drawn on the CPU), dropout and drop-path off: loss
+     within rtol 1e-3 / atol 2e-3, the trainable gradients' global norm
+     within rtol 1e-2;
+ 13. CLI: ``python -m upp_torch.main --peft_model`` (in process) trains
+     ``cfgs/unify_synthetic_cls.yaml`` on a 48-cloud synthetic split, batch
+     24, epochs 0-2 with ``--joint_optimization 1`` (epoch 2 trains the
+     joint set), then ``--test --vote --ckpts <its ckpt-best.pth>``: epoch
+     times, validation, test and vote accuracy.
+Launch counts are reset right before each path run (4, 5, 7, 8, 10, 11)
+and read right after; the kernel-vs-plain comparisons do not count. Before
+the last line it prints the ``kernels`` JSON line (FPS and kNN launches of
+one cls train step, Chamfer's of one pretask train step) and the card's
+name and power limit; the last line is the ``{"ok": true, "device": ...}``
+JSON object.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +98,9 @@ B = 120                 # the flagship's batch
 B_CPU = 8               # card-vs-CPU comparison batch
 B_PRETASK = 64          # total_bs of the published cfgs/pretask.yaml
 B_PRETASK_CPU = 4       # pretask card-vs-CPU comparison batch
+CLI_CLOUDS = 48         # per split of the CLI phase's synthetic dataset
+CLI_BS = 24
+CLI_DIR = "build/chip_smoke"
 N_POINTS = 8192
 NPOINTS = 1024
 SEED = 0
@@ -123,7 +155,11 @@ PRETASK_EVAL_CALLS = Counter({
     ("chamfer", 160, 8192, False): 2,         # sparse L1, L2
     ("chamfer", 2048, 8192, False): 5,        # dense L1, L2, F-score, CDL1, CDL2
 })
-KNN_GRAD_CALLS = (("knn", 32, 32, 6, False), ("knn", 32, 1024, 16, True))
+# (call, batch) of the kNN backward checks: the pretask's gradient shapes at
+# batch 64, the cls train joint stage's at batch 120
+KNN_GRAD_CALLS = ((("knn", 32, 32, 6, False), B_PRETASK), (("knn", 32, 1024, 16, True), B_PRETASK),
+                  (("knn", 64, 32, 8, False), B), (("knn", 64, 1024, 32, True), B),
+                  (("knn", 32, 32, 6, False), B), (("knn", 32, 972, 16, True), B))
 # path shapes held to the plain versions again on grid-quantized clouds full
 # of repeated points (every squared distance exact: real ties), at batch B
 # (Chamfer at B_PRETASK)
@@ -172,12 +208,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def synthetic_clouds(n: int) -> np.ndarray:
+def synthetic_clouds(n: int):
+    """(clouds [n, 8192, 3], labels [n]) of the synthetic test split."""
     from upp_torch.data.synthetic import SyntheticDataset
     from upp_torch.utils.config import ConfigDict
     ds = SyntheticDataset(ConfigDict(N_POINTS=N_POINTS, NUM_CATEGORY=6,
                                      SIZE=n, subset="test"))
-    return np.stack([ds[i][2][0] for i in range(n)]).astype(np.float32)
+    return (np.stack([ds[i][2][0] for i in range(n)]).astype(np.float32),
+            np.asarray([ds[i][2][1] for i in range(n)], np.int64))
 
 
 def _wrappers():
@@ -480,16 +518,19 @@ def bound_ms(nbytes, ops):
 
 def phase_knn_backward(clouds, card):
     """Gradients through the kernel's autograd Function vs autograd through
-    ``knn_plain`` at the pretask's gradient-carrying kNN shapes."""
+    ``knn_plain`` at the pretask's and the cls train step's gradient-carrying
+    kNN shapes. Returns the backward's ms through the Function by (call,
+    batch)."""
     from upp_torch.ops.geometry import index_points
     from upp_torch.ops.knn import knn, knn_plain, knn_points
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for call in KNN_GRAD_CALLS:
+    backward_ms = {}
+    for call, bsz in KNN_GRAD_CALLS:
         _, s, n, k, gather = call
-        points = clouds[:B_PRETASK, :n].contiguous()
-        query = (clouds[:B_PRETASK, n:n + s] * 0.9).contiguous()
-        g_d = torch.randn((B_PRETASK, s, k), generator=gen, device=points.device)
-        g_nb = torch.randn((B_PRETASK, s, k, 3), generator=gen, device=points.device)
+        points = clouds[:bsz, :n].contiguous()
+        query = (clouds[:bsz, n:n + s] * 0.9).contiguous()
+        g_d = torch.randn((bsz, s, k), generator=gen, device=points.device)
+        g_nb = torch.randn((bsz, s, k, 3), generator=gen, device=points.device)
 
         def loss(q, p, kernel):
             if kernel:
@@ -513,20 +554,24 @@ def phase_knn_backward(clouds, card):
                 raise AssertionError(f"kNN backward {call}: {name} gradients differ by "
                                      f"{(g - w).abs().max().item()}")
         err = max((g - w).abs().max().item() for g, w in zip(*grads))
+        backward_ms[(call, bsz)] = times[0]
         print(f"[knn backward] {call}: max |grad diff| {err:.3g} (rtol 1e-5, atol 1e-6); "
               f"backward through the kernel's Function {times[0]:.4f} ms, through "
-              f"knn_plain {times[1]:.4f} ms (B={B_PRETASK}; {card})", flush=True)
+              f"knn_plain {times[1]:.4f} ms (B={bsz}; {card})", flush=True)
+    return backward_ms
 
 
 CHAMFER_KERNELS = ("nn_fused_kernel", "unpack_kernel")
 
 
-def profile_steps(step, name, step_ms, card, bsz=B, steps=3, rows=10):
+def profile_steps(step, name, step_ms, card, bsz=B, steps=3, rows=10, ranges=()):
     """``torch.profiler`` over ``steps`` steps: the device's busy time per
     step (the self device time of its own events: kernels, copies, memsets),
     the wall time per step, the idle share against both the profiled and the
     unprofiled (``step_ms``) step, the FPS, kNN and Chamfer kernels' share,
-    and the largest rows."""
+    and the largest rows; for each ``record_function`` name in ``ranges``,
+    its calls per step and the device time of what it launched. Returns
+    {name: (calls, device ms) per step} of ``ranges``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -546,7 +591,7 @@ def profile_steps(step, name, step_ms, card, bsz=B, steps=3, rows=10):
     if busy <= 0.0:
         print(f"[{name} profile] the profiler saw no device time: busy time and idle "
               "share not measured", flush=True)
-        return
+        return {}
     fps_ms, knn_ms, chamfer_ms = (
         sum(dev_us(e) for e in events if any(k in e.key for k in kernels)) / 1e3 / steps
         for kernels in (("fps_kernel",), ("knn_kernel",), CHAMFER_KERNELS))
@@ -558,6 +603,17 @@ def profile_steps(step, name, step_ms, card, bsz=B, steps=3, rows=10):
     for e in events[:rows]:
         print(f"[{name} profile]   {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}", flush=True)
+    # a range's host-side event holds the device time of every kernel
+    # launched inside it (its children's included)
+    spans = {}
+    for r in ranges:
+        mine = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]
+        ms = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                 for e in mine) / 1e3 / steps
+        spans[r] = (len(mine) / steps, ms)
+        print(f"[{name} profile] {r}: {len(mine) / steps:g} calls/step, device {ms:.3f} "
+              f"ms/step (kernels launched inside it)", flush=True)
+    return spans
 
 
 def check_calls(name, rec, want):
@@ -716,6 +772,220 @@ def phase_pretask_card_vs_cpu(clouds, config, card, device):
           f"(rtol 1e-2) ({card})", flush=True)
 
 
+class KnnBackwardRecorder:
+    """Counts ``KnnKernel.backward`` calls by shape, ("knn", S, N, k,
+    gather), and marks each as a ``knn_backward`` profiler range."""
+
+    def __enter__(self):
+        from upp_torch.ops.knn import KnnKernel
+        self.cls, self.orig = KnnKernel, KnnKernel.backward
+        self.calls = Counter()
+
+        def backward(ctx, *grads):
+            query, points, idx, nbr = ctx.saved_tensors
+            self.calls[("knn", query.shape[1], points.shape[1], idx.shape[2],
+                        nbr is not None)] += 1
+            with torch.profiler.record_function("knn_backward"):
+                return self.orig(ctx, *grads)
+
+        KnnKernel.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.orig)
+
+
+def cls_train_setup(config, device, peft_list):
+    """(model, optimizer, train step) of the classification path from the
+    seeded weights, with the trainable set ``peft_list``."""
+    from upp_torch.train.optim import build_optimizer, set_trainable
+    from upp_torch.train.runner_cls import init_model, make_train_step
+    args = types.SimpleNamespace(seed=SEED, noise=True,
+                                 noise_type=["gaussian_noise", "lidar_noise"])
+    model = init_model(args, config, device)
+    set_trainable(model, peft_list)
+    optimizer = build_optimizer(config, model, steps_per_epoch=1)
+    return model, optimizer, make_train_step(model, optimizer, config, args)
+
+
+def _check_moves(name, model, before, must_move):
+    """Every parameter in ``must_move`` changed, every other one is
+    bit-unchanged. Returns the number of each."""
+    params = dict(model.named_parameters())
+    stale = [n for n in must_move if torch.equal(params[n].detach(), before[n])]
+    moved = [n for n in params if n not in must_move
+             and not torch.equal(params[n].detach(), before[n])]
+    if stale or moved or not must_move:
+        raise AssertionError(f"{name}: unchanged {stale[:5]}, changed outside the set "
+                             f"{moved[:5]}, {len(must_move)} to move")
+    return len(must_move), len(params) - len(must_move)
+
+
+def phase_cls_train(clouds, labels, config, card, device, backward_ms):
+    """Classification training at full width, batch 120: 3 PEFT steps, then
+    the joint switch on the live optimizer. ``backward_ms``: phase 3's kNN
+    backward ms by (call, batch). Returns the launch counts of one PEFT
+    step."""
+    from upp_torch.train.optim import set_trainable
+    from upp_torch.train.runner_cls import JOINT_PEFT_LIST, PEFT_LIST
+    model, _, train_step = cls_train_setup(config, device, PEFT_LIST)
+    pts, lab = clouds[:B], labels[:B]
+    snapshot = lambda: {n: p.detach().clone() for n, p in model.named_parameters()}  # noqa: E731
+    before = snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with Recorder() as rec, KnnBackwardRecorder() as bwd:
+        out = train_step(pts, lab)
+        torch.cuda.synchronize()
+    counts = check_calls("cls train (PEFT)", rec, ROBUST_CALLS)
+    if bwd.calls:
+        raise AssertionError(f"cls train (PEFT): kNN backward ran {dict(bwd.calls)}")
+    history = [out] + [train_step(pts, lab) for _ in range(2)]
+    for i, m in enumerate(history):
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"cls train (PEFT) step {i}: not finite: {vals}")
+        print(f"[cls train] PEFT step {i}: loss {vals['loss']:.4f}, acc {vals['acc']:.2f}",
+              flush=True)
+    # the trainable tensors the step reaches have a gradient; the others (the
+    # bnorm of blocks that do not propagate, the decoder's) never step
+    used = {n for n, p in model.named_parameters() if p.grad is not None}
+    n_moved, n_fixed = _check_moves("cls train (PEFT)", model, before, used)
+    n_unused = sum(p.requires_grad for p in model.parameters()) - len(used)
+    step_ms = cuda_ms(lambda: train_step(pts, lab), reps=10, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[cls train] PEFT: launches of one step {counts}; {n_moved} trainable tensors "
+          f"changed, {n_unused} trainable without a gradient and {n_fixed - n_unused} frozen "
+          f"bit-unchanged; {step_ms:.2f} ms/step, {B / step_ms * 1e3:.1f} clouds/s, peak "
+          f"{peak_gib:.2f} GiB (B={B}; {card})", flush=True)
+    profile_steps(lambda: train_step(pts, lab), "cls train PEFT", step_ms, card)
+
+    set_trainable(model, JOINT_PEFT_LIST)
+    before = snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with Recorder() as rec, KnnBackwardRecorder() as bwd:
+        out = train_step(pts, lab)
+        torch.cuda.synchronize()
+    joint_counts = check_calls("cls train (joint)", rec, ROBUST_CALLS)
+    if not bwd.calls or any((c, B) not in backward_ms for c in bwd.calls):
+        raise AssertionError(f"cls train (joint): kNN backward calls {dict(bwd.calls)}, "
+                             f"checked in phase 3: {sorted(backward_ms)}")
+    bwd_ms = sum(n * backward_ms[(c, B)] for c, n in bwd.calls.items())
+    vals = {k: float(v) for k, v in out.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"cls train (joint): not finite: {vals}")
+    used = {n for n, p in model.named_parameters() if p.grad is not None}
+    if any(n.startswith("cls_head_finetune") for n in used) or not any(
+            n.startswith("rectify_prompter") for n in used):
+        raise AssertionError(f"cls train (joint): wrong set stepped {sorted(used)[:8]}")
+    n_moved, n_fixed = _check_moves("cls train (joint)", model, before, used)
+    joint_ms = cuda_ms(lambda: train_step(pts, lab), reps=10, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[cls train] joint: launches of one step {joint_counts}; loss {vals['loss']:.4f}; "
+          f"kNN backward calls {dict(bwd.calls)}, {bwd_ms:.3f} ms a step estimated from "
+          f"phase 3's calls timed alone; {n_moved} tensors changed, the head and {n_fixed} "
+          f"others bit-unchanged; {joint_ms:.2f} ms/step, {B / joint_ms * 1e3:.1f} clouds/s, "
+          f"peak {peak_gib:.2f} GiB (B={B}; {card})", flush=True)
+    with KnnBackwardRecorder():
+        spans = profile_steps(lambda: train_step(pts, lab), "cls train joint", joint_ms, card,
+                              ranges=("knn_backward",))
+    if spans and spans["knn_backward"][0] != sum(bwd.calls.values()):
+        print(f"[cls train joint profile] the profile saw {spans['knn_backward'][0]:g} kNN "
+              f"backward calls a step of the step's {sum(bwd.calls.values())}: its device "
+              "time not measured", flush=True)
+    return counts
+
+
+def phase_cls_card_vs_cpu(clouds, labels, config, card, device):
+    """One cls train step at batch 8 in each stage on the card and on the
+    CPU, from the same weights and draws (drawn on the CPU), dropout and
+    drop-path off, without the gradient clip (the norm compared is the
+    gradients' own)."""
+    from upp_torch.train.pipeline import CorruptDraws
+    from upp_torch.train.runner_cls import JOINT_PEFT_LIST, PEFT_LIST
+    config = copy.deepcopy(config)
+    config.grad_norm_clip = None
+    bsz = B_CPU
+    gen = torch.Generator().manual_seed(SEED + 5)
+    v = torch.randn((bsz, 3), generator=gen)
+    draws = CorruptDraws(
+        viewpoints=v / torch.linalg.norm(v, dim=-1, keepdim=True),
+        lidar_idx=torch.randint(0, NPOINTS, (48,), generator=gen),
+        lidar_factor=1.2 + 0.3 * torch.rand((48,), generator=gen),
+        shell_normal=torch.randn((bsz, 24, 3), generator=gen),
+        aug_scale=2 / 3 + (3 / 2 - 2 / 3) * torch.rand((bsz, 1, 3), generator=gen),
+        aug_shift=0.2 * (2 * torch.rand((bsz, 1, 3), generator=gen) - 1))
+    for stage, peft in (("PEFT", PEFT_LIST), ("joint", JOINT_PEFT_LIST)):
+        results = []
+        for dev in (device, torch.device("cpu")):
+            model, _, train_step = cls_train_setup(config, dev, peft)
+            no_dropout(model)
+            on_dev = CorruptDraws(**{k: (x.to(dev) if torch.is_tensor(x) else x)
+                                     for k, x in vars(draws).items()})
+            out = train_step(clouds[:bsz].to(dev), labels[:bsz].to(dev), on_dev)
+            gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()
+                                   if p.grad is not None))
+            results.append((float(out["loss"]), float(out["acc"]), float(gnorm)))
+        (card_l, card_a, card_g), (cpu_l, cpu_a, cpu_g) = results
+        if not np.isclose(card_l, cpu_l, rtol=1e-3, atol=2e-3):
+            raise AssertionError(f"cls card vs CPU ({stage}): loss {card_l} vs {cpu_l}")
+        if not np.isclose(card_g, cpu_g, rtol=1e-2, atol=0.0):
+            raise AssertionError(f"cls card vs CPU ({stage}): grad norm {card_g} vs {cpu_g}")
+        print(f"[cls card vs cpu] {stage}, B={bsz}: loss card {card_l:.6f}, cpu {cpu_l:.6f} "
+              f"(rtol 1e-3, atol 2e-3), acc {card_a:.1f} / {cpu_a:.1f}; trainable grad norm "
+              f"card {card_g:.6g}, cpu {cpu_g:.6g} (rtol 1e-2) ({card})", flush=True)
+
+
+def phase_cls_cli(card):
+    """``upp_torch.main`` trains the classifier on a small synthetic split
+    with the joint switch, then tests its ``ckpt-best.pth`` with the vote.
+    The YAMLs and the run's output stay inside the checkout (``build/``,
+    ``experiments/``)."""
+    import yaml
+    from upp_torch.main import main as upp_main
+    cfg = yaml.safe_load(open(CFG))
+    for split in ("train", "val", "test"):
+        cfg["dataset"][split]["_base_"] = {"NAME": "Synthetic", "N_POINTS": N_POINTS,
+                                           "NUM_CATEGORY": 6, "SIZE": CLI_CLOUDS}
+    cfg.update(total_bs=CLI_BS, max_epoch=2)
+    os.makedirs(CLI_DIR, exist_ok=True)
+    paths = {}
+    for name in ("cls_cli_train", "cls_cli_test"):      # one log file each
+        paths[name] = os.path.join(CLI_DIR, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    t0 = time.time()
+    best = upp_main(["--peft_model", "--config", paths["cls_cli_train"],
+                     "--joint_optimization", "1", "--exp_name", "chip_smoke"])
+    train_s = time.time() - t0
+    run = sorted(os.listdir("experiments/cls_cli_train/plain-network/peft-chip_smoke"))[-1]
+    run = os.path.join("experiments/cls_cli_train/plain-network/peft-chip_smoke", run)
+    log = open(os.path.join(run, "cls_cli_train.log")).read()
+    epochs = re.findall(r"EPOCH: (\d+) EpochTime = ([\d.]+)", log)
+    val = re.findall(r"\[Validation\] EPOCH: (\d+)\s+acc = ([\d.]+)", log)
+    best_pth = os.path.join(run, "ckpt-best.pth")
+    if (len(epochs) != 3 or "[joint optimization] switching" not in log
+            or not os.path.exists(best_pth)
+            or not os.path.exists(os.path.join(run, "ckpt-last.pth"))):
+        raise AssertionError(f"CLI training: epochs {epochs}, log tail {log[-2000:]}")
+    t0 = time.time()
+    acc = upp_main(["--test", "--vote", "--peft_model", "--config", paths["cls_cli_test"],
+                    "--ckpts", best_pth, "--exp_name", "chip_smoke"])
+    test_s = time.time() - t0
+    test_dir = "experiments/cls_cli_test/ckpt-best/test-peft-chip_smoke"
+    test_log = open(os.path.join(test_dir, sorted(os.listdir(test_dir))[-1],
+                                 "cls_cli_test.log")).read()
+    vote = re.findall(r"\[TEST_VOTE\] acc = ([\d.]+)", test_log)
+    if not vote or "missing_keys" in test_log or not 0.0 <= acc <= 100.0:
+        raise AssertionError(f"CLI test: log tail {test_log[-2000:]}")
+    print(f"[cls cli] {CLI_CLOUDS} clouds a split, batch {CLI_BS}: epoch times (s) "
+          f"{', '.join(f'{e}: {t}' for e, t in epochs)}; validation acc "
+          f"{', '.join(f'{e}: {a}' for e, a in val)}; best {best.acc:.4f}; training "
+          f"{train_s:.1f} s of wall time; --test --vote --ckpts ckpt-best.pth: acc {acc:.4f}, "
+          f"vote acc {vote[0]}, {test_s:.1f} s ({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -742,8 +1012,9 @@ def main() -> int:
         for kernel in lines.split("; "):
             print(f"[ptxas] {name}.cu {kernel}", flush=True)
 
-    clouds_np = synthetic_clouds(B)
+    clouds_np, labels_np = synthetic_clouds(B)
     clouds = torch.from_numpy(clouds_np).to(device)
+    labels = torch.from_numpy(labels_np).to(device)
 
     # 2. kernels vs plain, ties and edges, host cost; 3. kNN backward
     with torch.inference_mode():
@@ -751,7 +1022,7 @@ def main() -> int:
         phase_kernel_ties_and_edges(card)
         phase_host_cost(clouds, card)
         phase_chamfer_yardstick(clouds, card)
-    phase_knn_backward(clouds, card)
+    backward_ms = phase_knn_backward(clouds, card)
 
     config = cfg_from_yaml_file(CFG)
     args = type("Args", (), {"seed": SEED, "normalize": False})()
@@ -817,13 +1088,20 @@ def main() -> int:
     pretask_config = cfg_from_yaml_file(PRETASK_CFG)
     pretask_counts = phase_pretask(clouds, pretask_config, card, device)
     phase_pretask_card_vs_cpu(clouds, pretask_config, card, device)
+    del model
 
-    kernels = [kernel_entry("fps", rows, ROBUST_CALLS, robust_counts["fps"]),
-               kernel_entry("knn", rows, ROBUST_CALLS, robust_counts["knn"]),
+    # 10-11. cls train, 12. cls card vs CPU, 13. CLI
+    cls_counts = phase_cls_train(clouds, labels, config, card, device, backward_ms)
+    phase_cls_card_vs_cpu(clouds, labels, config, card, device)
+    phase_cls_cli(card)
+
+    # the cls train step's forward makes the robust step's kernel calls
+    kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"]),
+               kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"]),
                kernel_entry("chamfer", rows, PRETASK_TRAIN_CALLS, pretask_counts["chamfer"])]
-    print("[kernels] ms/plain_ms/bound_ms/launches: fps and knn summed over one robust "
-          f"inference step (B={B}), chamfer over one pretask train step (B={B_PRETASK}); "
-          f"{card}")
+    print("[kernels] ms/plain_ms/bound_ms: fps and knn summed over one cls train step's "
+          f"calls (B={B}, the robust step's), launches from one cls train step; chamfer "
+          f"over one pretask train step (B={B_PRETASK}); {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -179,12 +179,25 @@ def test_point_mae_unify_forward(pair, mode):
 
 
 def test_training_mode_and_other_propagations_are_refused(pair):
+    """Train mode and the ``gather_idx: True`` / ``clean`` propagations run
+    (their parity is in ``test_torch_port_cls_train.py``); an unknown
+    ``propagation_semantics`` is still refused."""
     _, _, tm = pair
+    state0 = {k: v.clone() for k, v in tm.state_dict().items()}
     tm.train()
     try:
-        with pytest.raises(NotImplementedError):
-            tm(torch.tensor(_pts(POINT_NUM, 8)), point_num=POINT_NUM)
+        logits = tm(torch.tensor(_pts(POINT_NUM, 8)), point_num=POINT_NUM)
+        logits.sum().backward()
+        assert tm.cls_head_finetune[0].weight.grad is not None
     finally:
+        tm.zero_grad(set_to_none=True)
+        tm.load_state_dict(state0)
         tm.eval()
-    with pytest.raises(NotImplementedError):
-        build_model_from_cfg({**SMALL, "gather_idx": True})
+    assert logits.shape == (2, SMALL["cls_dim"]) and torch.isfinite(logits).all()
+    for change in ({"gather_idx": True}, {"propagation_semantics": "clean"}):
+        with torch.no_grad():
+            out = build_model_from_cfg({**SMALL, **change}).eval()(
+                torch.tensor(_pts(POINT_NUM, 8)), point_num=POINT_NUM)
+        assert torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="propagation_semantics"):
+        build_model_from_cfg({**SMALL, "propagation_semantics": "quirky"})

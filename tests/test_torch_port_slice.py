@@ -65,27 +65,62 @@ def test_make_eval_step_matches_jax(pair, noisy_validate):
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits), **TOL)
 
 
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def jax_aug_draws(key, aug, B, N):
+    """The random numbers of ``upp_tpu``'s augmentation ``aug`` from
+    ``key`` (its key splits), as the port's ``AugmentDraws`` fields, for
+    clouds [B, N, 3]."""
+    u = jax.random.uniform
+    if aug == "rotate":
+        return {"aug_theta": _t(u(key, (B,), jnp.float32, -jnp.pi, jnp.pi))}
+    if aug == "scale-translate":
+        a1, a2 = jax.random.split(key)
+        return {"aug_scale": _t(u(a1, (B, 1, 3), jnp.float32, 2 / 3, 3 / 2)),
+                "aug_shift": _t(u(a2, (B, 1, 3), jnp.float32, -0.2, 0.2))}
+    if aug == "scale":
+        return {"aug_scale": _t(u(key, (B, 1, 3), jnp.float32, 2 / 3, 3 / 2))}
+    if aug == "translate":
+        return {"aug_shift": _t(u(key, (B, 1, 3), jnp.float32, -0.2, 0.2))}
+    if aug == "jitter":
+        return {"aug_normal": _t(jax.random.normal(key, (B, N, 3), jnp.float32))}
+    if aug == "dropout":
+        k1, k2 = jax.random.split(key)
+        return {"aug_ratio": _t(u(k1, (B, 1), jnp.float32) * 0.5),
+                "aug_u": _t(u(k2, (B, N), jnp.float32))}
+    if aug == "hflip":
+        k1, k2 = jax.random.split(key)
+        return {"aug_apply": _t(u(k1, (B, 1), jnp.float32)),
+                "aug_axis": _t(u(k2, (B, 3), jnp.float32))}
+    assert aug is None
+    return {}
+
+
 def _jax_draws(key, B, n_in, aug):
-    """JAX's random numbers inside ``corrupt_batch`` (same key splits)."""
+    """JAX's random numbers inside ``corrupt_batch`` (same key splits) for
+    clouds of ``n_in`` points after the crop."""
     k_crop, k_lidar, k_gauss, k_aug = jax.random.split(key, 4)
     v = jnp.stack([jax.random.normal(k, (3,), jnp.float32)
                    for k in jax.random.split(k_crop, B)])
     v = v / jnp.linalg.norm(v, axis=-1, keepdims=True)
     k1, k2 = jax.random.split(k_lidar)
-    a1, a2 = jax.random.split(k_aug)
-    t = lambda a: torch.tensor(np.asarray(a))    # noqa: E731
     return CorruptDraws(
-        viewpoints=t(v),
-        lidar_idx=t(jax.random.randint(k1, (48,), 0, n_in)),
-        lidar_factor=t(jax.random.uniform(k2, (48,), jnp.float32, 1.2, 1.5)),
-        shell_normal=t(jax.random.normal(k_gauss, (B, 24, 3), jnp.float32)),
-        aug_scale=t(jax.random.uniform(a1, (B, 1, 3), jnp.float32, 2 / 3, 3 / 2)) if aug else None,
-        aug_shift=t(jax.random.uniform(a2, (B, 1, 3), jnp.float32, -0.2, 0.2)) if aug else None)
+        viewpoints=_t(v),
+        lidar_idx=_t(jax.random.randint(k1, (48,), 0, n_in)),
+        lidar_factor=_t(jax.random.uniform(k2, (48,), jnp.float32, 1.2, 1.5)),
+        shell_normal=_t(jax.random.normal(k_gauss, (B, 24, 3), jnp.float32)),
+        **jax_aug_draws(k_aug, aug, B, n_in + 72))
 
 
-@pytest.mark.parametrize("augmentation", [None, "scale-translate"])
+AUGMENTATIONS = [None, "scale-translate", "rotate", "scale", "translate", "jitter",
+                 "dropout", "hflip"]
+
+
+@pytest.mark.parametrize("augmentation", AUGMENTATIONS)
 def test_robust_inference_matches_jax(pair, augmentation):
-    """corrupt_batch (viewpoint crop, lidar + shell noise[, scale-translate])
+    """corrupt_batch (viewpoint crop, lidar + shell noise[, an augmentation])
     with JAX's draws, then the 3-pass forward."""
     jm, variables, tm = pair
     clouds = _synthetic(1024, 2, subset="train")
@@ -103,6 +138,13 @@ def test_robust_inference_matches_jax(pair, augmentation):
     with torch.no_grad():
         got = tm(got_pts, completion_prompt=True, denoise=True, point_num=NPOINTS)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_unknown_augmentation_raises():
+    clouds = torch.tensor(_synthetic(1024, 2))
+    with pytest.raises(ValueError, match="unknown data_augmentation"):
+        corrupt_batch(clouds, npoints=NPOINTS, n_points_dataset=1024, noisy_train=True,
+                      incomplete_cropping=True, augmentation="mixup")
 
 
 def test_corrupt_batch_from_a_generator_is_seeded():
@@ -153,8 +195,9 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
     config = cfg_from_yaml_file(str(REPO / "cfgs/unify_synthetic_cls.yaml"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        runner_cls.test_net(types.SimpleNamespace(seed=0), config)
+    for entry in (runner_cls.test_net, runner_cls.run_net, runner_cls.finetune_run_net):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(types.SimpleNamespace(seed=0), config)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -2,8 +2,11 @@
 
 A port of the JAX package ``upp_tpu`` (which stays the reference): the same
 module layout and names, the reference ``.pth`` key names, and the same
-numerics up to float32 rounding. Its kernels (``upp_torch/csrc``) run on a
-CUDA device; a tensor on the CPU takes each kernel's plain PyTorch version.
+numerics up to float32 rounding. It runs UPP's two-phase workflow (prompter
+pretraining, then PEFT classification training loading the prompters with
+``--ckpts``) and robust classification inference. Its kernels
+(``upp_torch/csrc``) run on a CUDA device; a tensor on the CPU takes each
+kernel's plain PyTorch version.
 """
 
 from __future__ import annotations

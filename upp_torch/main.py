@@ -1,12 +1,16 @@
 """upp_torch launcher, CLI-compatible with the JAX package's ``main.py``:
 
-    python -m upp_torch.main --test --peft_model --config cfgs/unify_synthetic_cls.yaml
     python -m upp_torch.main --config cfgs/pretask_synthetic.yaml          (prompter pretraining)
     python -m upp_torch.main --test --config cfgs/pretask_synthetic.yaml   (its 8-viewpoint eval)
+    python -m upp_torch.main --peft_model --config cfgs/unify_synthetic_cls.yaml \
+        [--ckpts <pretask ckpt-best.pth>] [--joint_optimization 250]      (PEFT training)
+    python -m upp_torch.main --test --vote --peft_model --config cfgs/unify_synthetic_cls.yaml \
+        --ckpts <ckpt-best.pth>                                          (test, 10-vote test)
 
-Runs on CUDA unless ``--device cpu``. Ported so far: ``--test`` of
-classification configs, and training and ``--test`` of pretask configs;
-classification training is the next slice."""
+Runs on CUDA unless ``--device cpu``. Ported: training and ``--test`` of
+classification configs (``--peft_model`` and ``--finetune_model``, for the
+models the port has) and of pretask configs; dispatch as the reference's
+``main.py:75-103``. Segmentation and MAE pretraining are not ported yet."""
 
 from __future__ import annotations
 
@@ -36,10 +40,14 @@ def main(argv=None):
     from .train import runner_cls, runner_pretask
     if task == "pretask":
         return (runner_pretask.test_net if args.test else runner_pretask.run_net)(args, config)
-    if task == "classification" and args.test:
-        return runner_cls.test_net(args, config)
-    raise NotImplementedError(f"upp_torch does not run {'--test of ' if args.test else ''}"
-                              f"task {task!r} yet (classification training is the next slice)")
+    if task == "classification":
+        if args.test:
+            return runner_cls.test_net(args, config)
+        if args.finetune_model:
+            return runner_cls.finetune_run_net(args, config)
+        return runner_cls.run_net(args, config)
+    raise NotImplementedError(f"upp_torch does not run task {task!r} yet "
+                              "(ported: classification, pretask)")
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.geometry import index_points
 from ..ops.propagate import inverse_distance_interp
 from .blocks import PrompterConfig
 from .layers import (BN_EPS, Adapter, Attention, Mlp, batch_norm_last, drop_path,
@@ -81,12 +82,22 @@ class PromptedBlock(nn.Module):
         return x
 
     def _propagate(self, x, classification: bool, propagation: dict):
-        """Geometry-aware prompt propagation, the reference's shipped cls
-        semantics (``quirk`` with ``gather_idx=False``): the kNN rows are
-        gathered from the prompt-augmented body flattened to
-        [B*(prompts+g), C] with offsets b*g, so sample b>0 reads the previous
-        sample's rows, and ``droppath(x) + x`` doubles the features at eval.
-        Released checkpoints were trained with exactly this."""
+        """Geometry-aware prompt propagation, in one of three gather modes
+        (``upp_tpu/models/scan_blocks.py:391-446``):
+
+        * the reference's shipped cls semantics (``quirk``, the default,
+          with ``gather_idx`` False): the kNN rows are gathered from the
+          prompt-augmented body flattened to [B*(prompts+g), C] with offsets
+          b*g, so sample b>0 reads the previous sample's rows. Released
+          checkpoints were trained with exactly this;
+        * ``gather_idx`` True (the reference's seg config): a per-sample
+          gather, still indexed into the prompt-augmented body;
+        * ``quirk`` False (``propagation_semantics: clean``): a per-sample
+          gather from the g group tokens alone.
+
+        Then ``droppath(neigh) + neigh`` (features doubled in eval), the
+        ``bnorm`` over all rows, a max over the k neighbours, and the
+        interpolation back onto the g tokens."""
         B, _, C = x.shape
         cls_x = x[:, :1] if classification else None
         body = x[:, 1:] if classification else x
@@ -97,11 +108,17 @@ class PromptedBlock(nn.Module):
         n_idx = propagation["center1_idx"]                  # [B, g2, k]
         c_idx = propagation["center2_idx"]                  # [B, g2]
         g2, k = n_idx.shape[1], n_idx.shape[2]
-        flat = body.reshape(-1, C)
-        off = (torch.arange(B, device=x.device) * g)[:, None, None]
-        neigh = flat[(n_idx + off).reshape(-1)].reshape(B, g2, k, C)
-        centers = flat[(c_idx + off[:, :, 0]).reshape(-1)].reshape(B, g2, C)
-        neigh = neigh + neigh
+        quirk = propagation.get("quirk", True)
+        if quirk and not propagation.get("gather_idx", False):
+            flat = body.reshape(-1, C)
+            off = (torch.arange(B, device=x.device) * g)[:, None, None]
+            neigh = flat[(n_idx + off).reshape(-1)].reshape(B, g2, k, C)
+            centers = flat[(c_idx + off[:, :, 0]).reshape(-1)].reshape(B, g2, C)
+        else:
+            src = body if quirk else tokens
+            neigh = index_points(src, n_idx)                 # [B, g2, k, C]
+            centers = index_points(src, c_idx)               # [B, g2, C]
+        neigh = drop_path(neigh, self.drop_path_rate, self.training) + neigh
         pooled = batch_norm_last(self.bnorm, neigh).amax(2)
         centers = pooled + 0.3 * centers
         tokens = tokens + 0.3 * inverse_distance_interp(

@@ -6,9 +6,10 @@ prompter-pretraining model (``models/Point_MAE_pretask_dev.py:520-741``).
 Three passes over one shared prompted backbone: rectify (depth 3, per-point
 rectification vectors, top-5% drop), completion (depth 6, coarse missing
 centers, 4-block decoder, dense rebuild, re-FPS) and downstream (12 blocks
-with prompt propagation) → classification head. The classifier runs in
-inference only so far (its training is the next slice); the pretask model
-trains.
+with prompt propagation) → classification head. Both models train: in
+``.train()`` every pass runs in train mode, as the JAX package's
+``deterministic=False`` does (BatchNorm on batch statistics, the encoder's
+updated once per pass in order; dropout; drop-path).
 """
 
 from __future__ import annotations
@@ -133,11 +134,14 @@ class PointMAEUnify(_UnifyCore):
     def __init__(self, config: Any):
         cfg = to_config(config)
         super().__init__(cfg)
-        if (cfg.get("gather_idx", False)
-                or cfg.get("propagation_semantics", "reference") != "reference"):
-            raise NotImplementedError(
-                "only the reference cls propagation (gather_idx: False) is "
-                "ported; gather_idx / clean semantics arrive with segmentation")
+        semantics = cfg.get("propagation_semantics", "reference")
+        if semantics not in ("reference", "clean"):
+            raise ValueError(f"propagation_semantics {semantics!r}: 'reference' "
+                             "or 'clean'")
+        # the propagation's gather mode (ScannedEncoderStack._propagate): the
+        # reference's quirky gather unless the config opts into 'clean'
+        self.gather_mode = {"gather_idx": bool(cfg.get("gather_idx", False)),
+                            "quirk": semantics == "reference"}
         self.prompt_propagation_after = bool(cfg.get("prompt_propagation_after", False))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, self.trans_dim))
         self.cls_pos = nn.Parameter(torch.zeros(1, 1, self.trans_dim))
@@ -149,9 +153,6 @@ class PointMAEUnify(_UnifyCore):
                 denoise: bool = False, point_num: int = 1024) -> torch.Tensor:
         """Logits [B, cls_dim] of clouds ``pts`` [B, P, 3]; ``denoise`` runs
         the rectify pass, ``completion_prompt`` the completion pass."""
-        if self.training:
-            raise NotImplementedError("PointMAEUnify is inference-only so far; "
-                                      "call .eval() (training is the next slice)")
         if denoise:
             pts = self.denoise_pts(pts, point_num)
         if completion_prompt:
@@ -171,7 +172,8 @@ class PointMAEUnify(_UnifyCore):
         if self.prompt_propagation_after:
             lvl2 = group_points(g.center, self.num_group // 2, 8)
             propagation = {"center1": g.center, "center1_idx": lvl2.idx,
-                           "center2": lvl2.center, "center2_idx": lvl2.center_idx}
+                           "center2": lvl2.center, "center2_idx": lvl2.center_idx,
+                           **self.gather_mode}
         x = self.blocks(x, pos, path="downstream", classification=True,
                         propagation=propagation)
         x = self.norm(x)

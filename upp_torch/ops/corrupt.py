@@ -1,6 +1,7 @@
 """Corruption ops of the robust pipeline (counterpart of
-``upp_tpu/ops/corrupt.py``): viewpoint crop, lidar and shell noise,
-scale-translate, unit-sphere normalisation.
+``upp_tpu/ops/corrupt.py``): viewpoint crop, lidar and shell noise, the
+augmentations (scale-translate, rotate, scale, translate, jitter, input
+dropout, horizontal flip), unit-sphere normalisation.
 
 Each random op takes a ``torch.Generator`` on its tensors' device, or the
 draws themselves, so a test can feed both packages the same numbers (JAX's
@@ -125,6 +126,87 @@ def scale_translate(pc: torch.Tensor, scale_low: float = 2.0 / 3.0,
         shift = translate_range * (2.0 * torch.rand(
             (B, 1, 3), generator=generator, device=pc.device) - 1.0)
     return pc * scale + shift
+
+
+def rotate_y(pc: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+             theta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample rotation about the y axis by ``theta`` [B] ~ U(-pi, pi),
+    ``pc @ R.T`` with R = [[c, 0, s], [0, 1, 0], [-s, 0, c]]. Written as
+    elementwise products and sums, so no TF32 matrix product can reach it
+    (the JAX package computes it in full float32)."""
+    if theta is None:
+        theta = torch.pi * (2.0 * torch.rand((pc.shape[0],), generator=generator,
+                                             device=pc.device) - 1.0)
+    c, s = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    return torch.stack([x * c + z * s, y, z * c - x * s], dim=-1)
+
+
+def jitter(pc: torch.Tensor, std: float = 0.01, clip: float = 0.03, *,
+           generator: Optional[torch.Generator] = None,
+           normal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Clipped Gaussian jitter; ``normal`` are the standard normal draws
+    [B, N, 3]."""
+    if normal is None:
+        normal = torch.randn(pc.shape, generator=generator, device=pc.device)
+    return pc + (std * normal).clamp(-clip, clip)
+
+
+def pointcloud_scale(pc: torch.Tensor, scale_low: float = 2.0 / 3.0,
+                     scale_high: float = 3.0 / 2.0, *,
+                     generator: Optional[torch.Generator] = None,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample anisotropic scale [B, 1, 3] only."""
+    if scale is None:
+        scale = scale_low + (scale_high - scale_low) * torch.rand(
+            (pc.shape[0], 1, 3), generator=generator, device=pc.device)
+    return pc * scale
+
+
+def pointcloud_translate(pc: torch.Tensor, translate_range: float = 0.2, *,
+                         generator: Optional[torch.Generator] = None,
+                         shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample translate [B, 1, 3] only."""
+    if shift is None:
+        shift = translate_range * (2.0 * torch.rand(
+            (pc.shape[0], 1, 3), generator=generator, device=pc.device) - 1.0)
+    return pc + shift
+
+
+def random_input_dropout(pc: torch.Tensor, max_dropout_ratio: float = 0.5, *,
+                         generator: Optional[torch.Generator] = None,
+                         ratio: Optional[torch.Tensor] = None,
+                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per sample a ratio [B, 1] ~ U(0, max); a point whose draw ``u``
+    [B, N] ~ U(0, 1) is <= the ratio becomes the cloud's first point (the
+    reference's replacement rule, shapes kept)."""
+    B, N, _ = pc.shape
+    if ratio is None:
+        ratio = max_dropout_ratio * torch.rand((B, 1), generator=generator, device=pc.device)
+    if u is None:
+        u = torch.rand((B, N), generator=generator, device=pc.device)
+    return torch.where((u <= ratio)[..., None], pc[:, :1], pc)
+
+
+def random_horizontal_flip(pc: torch.Tensor, upright_axis: str = "z",
+                           p_apply: float = 0.95, p_axis: float = 0.5, *,
+                           generator: Optional[torch.Generator] = None,
+                           apply: Optional[torch.Tensor] = None,
+                           axis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """With probability ``p_apply`` per sample (draws ``apply`` [B, 1] ~
+    U(0, 1)), each axis but the upright one flips with probability
+    ``p_axis`` (draws ``axis`` [B, 3]) as ``coord_max - coord``, the
+    reference's reflection (not a sign flip)."""
+    up = {"x": 0, "y": 1, "z": 2}[upright_axis.lower()]
+    B = pc.shape[0]
+    if apply is None:
+        apply = torch.rand((B, 1), generator=generator, device=pc.device)
+    if axis is None:
+        axis = torch.rand((B, 3), generator=generator, device=pc.device)
+    do = (apply < p_apply) & (axis < p_axis)
+    do[:, up] = False
+    cmax = pc.amax(1, keepdim=True)
+    return torch.where(do[:, None, :], cmax - pc, pc)
 
 
 def normalize_unit_sphere(pc: torch.Tensor, recenter: bool = False) -> torch.Tensor:

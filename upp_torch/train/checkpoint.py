@@ -38,16 +38,19 @@ def save_checkpoint(model: nn.Module, optimizer, epoch: int, prefix: str,
 
 
 def resume_checkpoint(model: nn.Module, optimizer, experiment_path: str,
-                      prefix: str = "ckpt-last", logger=None) -> Tuple[int, Dict]:
+                      prefix: str = "ckpt-last", logger=None,
+                      steps_per_epoch: int = 0) -> Tuple[int, Dict]:
     """Load a checkpoint written by ``save_checkpoint`` into ``model`` and
     ``optimizer``; returns (start_epoch = saved epoch + 1, metrics). Without
-    a checkpoint: (0, {})."""
+    a checkpoint: (0, {}). An optimizer state saved without its step count
+    resumes at ``start_epoch * steps_per_epoch`` steps."""
     path = checkpoint_path(experiment_path, prefix)
     if not os.path.exists(path):
         print_log(f"[RESUME] no checkpoint at {path}", logger=logger)
         return 0, {}
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state["base_model"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
+    start_epoch = int(state["epoch"]) + 1
+    optimizer.load_state_dict(state["optimizer"], num_steps=start_epoch * steps_per_epoch)
     print_log(f"[RESUME] restored ckpt @ epoch {state['epoch']}", logger=logger)
-    return int(state["epoch"]) + 1, dict(state.get("metrics") or {})
+    return start_epoch, dict(state.get("metrics") or {})

@@ -1,6 +1,7 @@
-"""Completion metrics and meters (counterpart of the pretask half of
-``upp_tpu/train/metrics.py``): ``CD_Metric``
-(``tools/runner_pretask.py:49-66``), F-Score / CDL1 / CDL2
+"""Classification and completion metrics and meters (counterpart of the
+classification and pretask parts of ``upp_tpu/train/metrics.py``): the
+cross-entropy loss and accuracy (``get_loss_acc``), ``Acc_Metric``,
+``CD_Metric`` (``tools/runner_pretask.py:32-66``), F-Score / CDL1 / CDL2
 (``utils/metrics.py``; EMD is not ported) and ``AverageMeter``."""
 
 from __future__ import annotations
@@ -9,8 +10,32 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.chamfer import chamfer_l1, chamfer_l2, nn_distance
+
+
+def cross_entropy_loss_acc(logits: torch.Tensor, labels: torch.Tensor):
+    """(mean cross-entropy, accuracy x100) of ``logits`` [B, C] against
+    integer ``labels`` [B] (``Point_MAE_unify.py:499-503``)."""
+    labels = labels.long()
+    logp = F.log_softmax(logits, dim=-1)
+    loss = -logp.gather(1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).float().mean() * 100.0
+    return loss, acc
+
+
+class AccMetric:
+    """Higher-is-better accuracy holder (``tools/runner.py:13-31``)."""
+
+    def __init__(self, acc: float = 0.0):
+        self.acc = float(acc)
+
+    def better_than(self, other: "AccMetric") -> bool:
+        return self.acc > other.acc
+
+    def state_dict(self) -> Dict[str, float]:
+        return {"acc": self.acc}
 
 
 class CDMetric:

@@ -16,6 +16,16 @@
   ``masked_adamw`` imitates, provided a frozen parameter's ``grad`` is None
   at every step: ``ScheduledOptimizer.zero_grad`` always sets it to None (a
   stale zero gradient would make AdamW decay and step a frozen parameter).
+* ``step_per_update`` k > 1 accumulates as the reference does
+  (``runner_module.py:199-207``, the JAX package's ``accumulate_every``):
+  the micro-steps' gradients are summed, never averaged, and every k-th
+  call clips and steps on the sum. The schedule and the Adam counts advance
+  on real steps only, so the schedule, indexed by real steps over
+  ``steps_per_epoch`` micro-batches, runs k times slower, as in JAX. A
+  switch of the trainable set in the middle of an accumulation: a
+  parameter it freezes drops its summed gradient and does not step (JAX
+  masks it); one it unfreezes sums only the calls after the switch, where
+  JAX's full-tree gradients hold every call of the accumulation.
 """
 
 from __future__ import annotations
@@ -87,48 +97,88 @@ class ScheduledOptimizer:
     """A torch optimizer whose learning rate is set from the schedule before
     each step, with an optional clip of the gradient norm over the
     parameters that have a gradient (the trainable ones), as
-    ``clip_grad_norm_`` sees only those in the reference."""
+    ``clip_grad_norm_`` sees only those in the reference; with
+    ``accumulate`` k > 1 only every k-th ``step`` call steps, on the summed
+    gradients of the calls since the last. ``calls`` counts every ``step``
+    call, as the JAX package's ``TrainState.step`` does."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 sched: Callable[[int], float], clip: Optional[float] = None):
+                 sched: Callable[[int], float], clip: Optional[float] = None,
+                 accumulate: int = 1):
         self.optimizer = optimizer
         self.sched = sched
         self.clip = clip
-        self.num_steps = 0          # drives the schedule
+        self.accumulate = accumulate
+        self.num_steps = 0          # real steps; drive the schedule
+        self.micro_steps = 0        # calls since the last real step
 
     def zero_grad(self) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
+        """Clear the gradients, unless an accumulation is under way."""
+        if self.micro_steps == 0:
+            self.optimizer.zero_grad(set_to_none=True)
+
+    @property
+    def calls(self) -> int:
+        return self.num_steps * self.accumulate + self.micro_steps
 
     def step(self) -> None:
+        """One micro-step; every ``accumulate``-th call a real step over the
+        parameters that are trainable now."""
+        self.micro_steps += 1
+        if self.micro_steps < self.accumulate:
+            return
+        self.micro_steps = 0
         lr = self.sched(self.num_steps)
+        params = []
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+            for p in group["params"]:
+                if not p.requires_grad:         # frozen during the accumulation
+                    p.grad = None
+                elif p.grad is not None:
+                    params.append(p)
         if self.clip is not None:
-            params = [p for g in self.optimizer.param_groups for p in g["params"]
-                      if p.grad is not None]
             torch.nn.utils.clip_grad_norm_(params, self.clip)
         self.optimizer.step()
         self.num_steps += 1
 
     def state_dict(self):
-        return self.optimizer.state_dict()
+        """The torch optimizer's state with the real-step count; a resumed
+        run starts a fresh accumulation (the summed gradients are not
+        saved)."""
+        return {**self.optimizer.state_dict(), "num_steps": self.num_steps}
 
-    def load_state_dict(self, state) -> None:
+    def load_state_dict(self, state, num_steps: int = 0) -> None:
+        """``num_steps``: the real-step count of a state saved without one
+        (written before the count was saved, when k was always 1)."""
+        state = dict(state)
+        self.num_steps = int(state.pop("num_steps", num_steps))
+        self.micro_steps = 0
         self.optimizer.load_state_dict(state)
+
+
+def step_generator(gens: dict, device: torch.device, seed: int,
+                   calls: int) -> torch.Generator:
+    """The generator of a train step's draws: ``gens``' one for ``device``
+    (made at the first call), seeded from ``seed`` and the optimizer's count
+    of calls, as the JAX package folds ``state.step`` into its key. A host
+    seed; nothing waits on the device."""
+    gen = gens.get(device)
+    if gen is None:
+        gen = gens[device] = torch.Generator(device)
+    return gen.manual_seed((seed << 32) + calls)
 
 
 def build_optimizer(config, model: nn.Module, steps_per_epoch: int) -> ScheduledOptimizer:
     """AdamW over every parameter of ``model`` in the reference's two decay
-    groups, on the config's schedule and ``grad_norm_clip``. Which
-    parameters train is ``requires_grad`` (``set_trainable``), which may
-    change later without rebuilding the optimizer."""
+    groups, on the config's schedule, ``grad_norm_clip`` and
+    ``step_per_update``. Which parameters train is ``requires_grad``
+    (``set_trainable``), which may change later without rebuilding the
+    optimizer."""
     opti_cfg = config.optimizer
     if opti_cfg.type != "AdamW":
         raise NotImplementedError(f"optimizer type {opti_cfg.type!r}: only AdamW "
                                   "is ported so far")
-    if int(config.get("step_per_update", 1) or 1) != 1:
-        raise NotImplementedError("step_per_update > 1 (gradient accumulation) "
-                                  "is not ported yet")
     wd = float(opti_cfg.kwargs.get("weight_decay", 0.0))
     decay, no_decay = [], []
     for name, p in model.named_parameters():
@@ -139,7 +189,8 @@ def build_optimizer(config, model: nn.Module, steps_per_epoch: int) -> Scheduled
     clip = config.get("grad_norm_clip")
     return ScheduledOptimizer(opt, build_schedule(opti_cfg, config.scheduler,
                                                   steps_per_epoch),
-                              None if clip is None else float(clip))
+                              None if clip is None else float(clip),
+                              accumulate=max(int(config.get("step_per_update", 1) or 1), 1))
 
 
 def count_params(model: nn.Module) -> Tuple[int, int]:

@@ -8,12 +8,14 @@ Gaussian_noise_number = 24, lidar_noise_number = 48.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..ops.corrupt import (gaussian_shell_noise, lidar_noise,
+from ..ops.corrupt import (gaussian_shell_noise, jitter, lidar_noise,
                            normalize_unit_sphere, partial_point_cloud,
+                           pointcloud_scale, pointcloud_translate,
+                           random_horizontal_flip, random_input_dropout, rotate_y,
                            scale_translate)
 from ..ops.fps import fps
 
@@ -22,7 +24,21 @@ LIDAR_NOISE_NUMBER = 48
 
 
 @dataclasses.dataclass
-class CorruptDraws:
+class AugmentDraws:
+    """The random numbers of one augmentation. A field left None is drawn
+    from the generator; each augmentation reads its own fields."""
+    aug_scale: Optional[torch.Tensor] = None     # [B, 1, 3] scale, scale-translate
+    aug_shift: Optional[torch.Tensor] = None     # [B, 1, 3] translate, scale-translate
+    aug_theta: Optional[torch.Tensor] = None     # [B] rotate: angle in [-pi, pi)
+    aug_normal: Optional[torch.Tensor] = None    # [B, N, 3] jitter: standard normal
+    aug_ratio: Optional[torch.Tensor] = None     # [B, 1] dropout: ratio in [0, 0.5)
+    aug_u: Optional[torch.Tensor] = None         # [B, N] dropout: U(0, 1)
+    aug_apply: Optional[torch.Tensor] = None     # [B, 1] hflip: U(0, 1)
+    aug_axis: Optional[torch.Tensor] = None      # [B, 3] hflip: U(0, 1)
+
+
+@dataclasses.dataclass
+class CorruptDraws(AugmentDraws):
     """The random numbers of one ``corrupt_batch`` call. A field left None
     is drawn from the generator. Tests fill them with the JAX package's
     draws."""
@@ -31,8 +47,39 @@ class CorruptDraws:
     lidar_idx: Optional[torch.Tensor] = None     # [lidar_number]
     lidar_factor: Optional[torch.Tensor] = None  # [lidar_number]
     shell_normal: Optional[torch.Tensor] = None  # [B, gaussian_number, 3]
-    aug_scale: Optional[torch.Tensor] = None     # [B, 1, 3]
-    aug_shift: Optional[torch.Tensor] = None     # [B, 1, 3]
+
+
+# augmentation name → (op, {op keyword: AugmentDraws field}), the reference's
+# transform registry (datasets/data_transforms.py); shipped configs use
+# 'scale-translate' and 'rotate'
+AUGMENTATIONS = {
+    "rotate": (rotate_y, {"theta": "aug_theta"}),
+    "scale-translate": (scale_translate, {"scale": "aug_scale", "shift": "aug_shift"}),
+    "scale": (pointcloud_scale, {"scale": "aug_scale"}),
+    "translate": (pointcloud_translate, {"shift": "aug_shift"}),
+    "jitter": (jitter, {"normal": "aug_normal"}),
+    "dropout": (random_input_dropout, {"ratio": "aug_ratio", "u": "aug_u"}),
+    "hflip": (random_horizontal_flip, {"apply": "aug_apply", "axis": "aug_axis"}),
+}
+
+
+def resolve_augmentation(name: Optional[str]) -> Optional[Callable[..., torch.Tensor]]:
+    """Config key → ``augment(points, generator=None, draws=None)``, or None
+    for no augmentation; an unknown name raises at step-build time instead
+    of training without augmentation."""
+    if not name or name == "none":
+        return None
+    if name not in AUGMENTATIONS:
+        raise ValueError(f"unknown data_augmentation {name!r}; "
+                         f"known: {sorted(AUGMENTATIONS)}")
+    op, fields = AUGMENTATIONS[name]
+
+    def augment(points: torch.Tensor, generator: Optional[torch.Generator] = None,
+                draws: Optional[AugmentDraws] = None) -> torch.Tensor:
+        kw = {k: getattr(draws, f) for k, f in fields.items()} if draws else {}
+        return op(points, generator=generator, **kw)
+
+    return augment
 
 
 def point_all_for(npoints: int, available: int) -> int:
@@ -70,11 +117,9 @@ def corrupt_batch(pts: torch.Tensor, *, npoints: int, n_points_dataset: int,
     (+ noise points) per cloud.
 
     The crop half of the viewpoint split is never computed: the pipeline
-    keeps only the partial cloud. ``augmentation`` is None or
-    'scale-translate'; the other augmentations arrive with training."""
-    if augmentation not in (None, "none", "scale-translate"):
-        raise NotImplementedError(f"augmentation {augmentation!r} is not "
-                                  "ported yet (only 'scale-translate')")
+    keeps only the partial cloud. ``augmentation`` is a key of
+    ``AUGMENTATIONS``, or None / 'none'."""
+    augment = resolve_augmentation(augmentation)
     dr = draws or CorruptDraws()
     B = pts.shape[0]
     if noisy_train and incomplete_cropping:
@@ -100,7 +145,6 @@ def corrupt_batch(pts: torch.Tensor, *, npoints: int, n_points_dataset: int,
                 generator=generator, normal=dr.shell_normal, device=pts.device)
             points = torch.cat([points, noise], dim=1)
 
-    if augmentation == "scale-translate":
-        points = scale_translate(points, generator=generator,
-                                 scale=dr.aug_scale, shift=dr.aug_shift)
+    if augment is not None:
+        points = augment(points, generator, dr)
     return points

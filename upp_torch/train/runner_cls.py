@@ -1,21 +1,45 @@
-"""Classification evaluation (counterpart of the eval half of
-``upp_tpu/train/runner_cls.py``: ``make_eval_step``, ``validate``,
-``test_net``), and the model and loader set-up the runners share
-(``init_model``, ``build_loaders``). Classification training, checkpoint
-loading and the vote are still to be ported.
+"""Classification runners (counterpart of ``upp_tpu/train/runner_cls.py``;
+reference ``tools/runner_module.py`` and ``tools/runner_finetune.py``): PEFT
+training with the joint-optimization switch (``run_net``), full fine-tuning
+(``finetune_run_net``), evaluation (``make_eval_step``, ``validate``,
+``test_net``) and the 10-vote test (``test_vote``); and the set-up the
+runners share (``init_model`` with ``--ckpts``, ``build_loaders``).
+
+One train step: crop 8192→1024 (+48 lidar, +24 shell points), the config's
+augmentation, ``PointMAEUnify`` in train mode through its three passes,
+cross-entropy, AdamW over the trainable set. The runners log to the logger
+only (no TensorBoard writers).
 """
 
 from __future__ import annotations
+
+import time
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..data import BatchLoader, build_dataset_from_cfg
-from ..models import build_model_from_cfg
-from ..ops.corrupt import normalize_unit_sphere
+from ..models import MODELS, build_model_from_cfg
+from ..ops.corrupt import normalize_unit_sphere, scale_translate
 from ..ops.fps import fps
 from ..utils.logger import get_logger, print_log
+from . import checkpoint as ckpt
+from .ckpt_io import load_weights
+from .metrics import AccMetric, AverageMeter, cross_entropy_loss_acc
+from .optim import build_optimizer, count_params, set_trainable, step_generator
+from .pipeline import CorruptDraws, corrupt_batch, resolve_augmentation, subsample_fps_random
+
+# PEFT trainable-name lists (tools/runner_module.py:62-66, 230-244); the
+# joint set leaves out the head, bnorm and the cls tokens, as the reference
+PEFT_LIST = ["downstream_adapter", "downstream_adapter1", "downstream_prompts",
+             "bnorm", "cls_pos", "cls_token", "cls_head_finetune"]
+JOINT_PEFT_LIST = ["downstream_adapter", "downstream_adapter1",
+                   "downstream_prompts", "dense_pred", "mask_token",
+                   "rectify_prompter", "shape_pred", "coarse_pred",
+                   "predict_token_generator", "mask_prompter",
+                   "mask_token_generator"]
 
 
 def build_loaders(args, config):
@@ -35,28 +59,73 @@ def build_loaders(args, config):
 
 def init_model(args, config, device: torch.device, logger=None):
     """Build the model from the config with weights from ``args.seed``,
-    created on the CPU first so every device gets the same weights."""
-    if getattr(args, "ckpts", None):
-        raise NotImplementedError("loading --ckpts is not ported yet; omit it "
-                                  "to start from a seeded init")
+    created on the CPU first so every device gets the same weights, then
+    load ``args.ckpts`` over them when given."""
+    name = config.model.NAME
+    if MODELS.get(name) is None:
+        raise NotImplementedError(f"model {name!r} is not ported yet; the port has "
+                                  f"{sorted(MODELS.module_dict)}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(getattr(args, "seed", 0)))
         model = build_model_from_cfg(config.model)
     print_log(f"Model from a seeded init (seed {getattr(args, 'seed', 0)})",
               logger=logger)
+    if getattr(args, "ckpts", None):
+        load_weights(model, args.ckpts, logger=logger)
     return model.to(device).eval()
+
+
+def make_train_step(model, optimizer, config, args):
+    """``train_step(pts [B, N, 3], label [B], draws=None) -> {"loss",
+    "acc"}`` as 0-d tensors on pts' device, unsynced: ``corrupt_batch``
+    (the config's noise and augmentation), the model in train mode
+    (through the rectify and completion passes when ``noisy_train``),
+    cross-entropy, one optimizer step. Follows
+    ``upp_tpu/train/runner_cls.py:86-126``; the draws come, unless given,
+    from a device generator seeded from ``args.seed + 777`` and the
+    optimizer's count of calls, as JAX folds ``state.step`` into its key,
+    so a resumed run draws what the uninterrupted run would have."""
+    noisy_train = bool(config.get("noisy_train", False))
+    npoints = int(config.npoints)
+    augmentation = config.get("data_augmentation", None)
+    resolve_augmentation(augmentation)          # an unknown name fails here
+    corrupt_kw = dict(
+        npoints=npoints, n_points_dataset=int(config.dataset.train._base_.N_POINTS),
+        noisy_train=noisy_train,
+        incomplete_cropping=bool(getattr(args, "incomplete_cropping", True)),
+        add_noise=bool(getattr(args, "noise", True)),
+        noise_types=tuple(getattr(args, "noise_type", ("gaussian_noise", "lidar_noise"))),
+        augmentation=augmentation, normalize=bool(getattr(args, "normalize", False)))
+    seed = int(getattr(args, "seed", 0)) + 777
+    gens = {}                       # the device generator, made at the first step
+
+    def train_step(pts: torch.Tensor, label: torch.Tensor,
+                   draws: Optional[CorruptDraws] = None):
+        gen = step_generator(gens, pts.device, seed, optimizer.calls)
+        model.train()
+        points = corrupt_batch(pts, **corrupt_kw, generator=gen, draws=draws)
+        logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
+                       point_num=npoints)
+        loss, acc = cross_entropy_loss_acc(logits, label)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "acc": acc.detach()}
+
+    return train_step
 
 
 def make_eval_step(model, config, args):
     """``eval_step(pts [B, N, 3]) -> predicted class [B]``: FPS to
-    ``npoints``, then the model, through the rectify and completion passes
-    when the config sets ``noisy_validate``."""
+    ``npoints``, then the model in eval mode, through the rectify and
+    completion passes when the config sets ``noisy_validate``."""
     npoints = int(config.npoints)
     noisy_validate = bool(config.get("noisy_validate", False))
     normalize = bool(getattr(args, "normalize", False))
 
     @torch.inference_mode()
     def eval_step(pts: torch.Tensor) -> torch.Tensor:
+        model.eval()
         points, _ = fps(pts, npoints)
         if normalize:
             points = normalize_unit_sphere(points)
@@ -67,25 +136,138 @@ def make_eval_step(model, config, args):
     return eval_step
 
 
+def _accuracy(preds, labels) -> float:
+    hit = (torch.cat(preds).cpu().numpy() == np.concatenate(labels)) if preds \
+        else np.zeros((0,), bool)
+    return float(hit.mean() * 100.0) if hit.size else 0.0
+
+
 def validate(eval_step, loader, device: torch.device, epoch: int,
-             logger=None) -> float:
-    """Accuracy (%) of ``eval_step`` over ``loader`` (single process)."""
+             logger=None) -> AccMetric:
+    """Accuracy (%) of ``eval_step`` over ``loader`` (single process); the
+    predictions are fetched once, after the sweep."""
     preds, labels = [], []
     for pts, label in loader:
         preds.append(eval_step(torch.from_numpy(pts).to(device)))
         labels.append(np.asarray(label))
-    hit = (torch.cat(preds).cpu().numpy() == np.concatenate(labels)) if preds \
-        else np.zeros((0,), bool)
-    acc = float(hit.mean() * 100.0) if hit.size else 0.0
+    acc = _accuracy(preds, labels)
     print_log(f"[Validation] EPOCH: {epoch}  acc = {acc:.4f}", logger=logger)
-    return acc
+    return AccMetric(acc)
+
+
+def run_net(args, config) -> AccMetric:
+    """PEFT classification training on ``args.device`` (CUDA unless the
+    caller names another), ``runner_module.run_net``: validation before the
+    first epoch, then every ``val_freq`` epochs; ``ckpt-best`` when the
+    accuracy improves and ``ckpt-last`` every epoch; ``--resume``; after
+    epoch ``--joint_optimization`` (and on a resume past it) the trainable
+    set becomes ``JOINT_PEFT_LIST`` on the live optimizer, whose AdamW
+    moments of parameters that stay trainable carry over. Returns the best
+    validation accuracy."""
+    device = resolve_device(getattr(args, "device", None))
+    logger = get_logger(getattr(args, "log_name", "upp_torch"))
+    train_loader, val_loader = build_loaders(args, config)
+    model = init_model(args, config, device, logger=logger)
+    steps_per_epoch = max(len(train_loader), 1)
+    set_trainable(model, PEFT_LIST if getattr(args, "peft_model", True) else None)
+    optimizer = build_optimizer(config, model, steps_per_epoch)
+    trainable, total = count_params(model)
+    print_log(f"# TrainableParams: {trainable / 1e6:.2f} M / {total / 1e6:.2f} M "
+              f"({trainable / total * 100:.2f} %)", logger=logger)
+
+    start_epoch, best = 0, AccMetric(0.0)
+    if getattr(args, "resume", False):
+        start_epoch, saved = ckpt.resume_checkpoint(model, optimizer, args.experiment_path,
+                                                    logger=logger,
+                                                    steps_per_epoch=steps_per_epoch)
+        best = AccMetric(saved.get("acc", 0.0))
+
+    train_step = make_train_step(model, optimizer, config, args)
+    eval_step = make_eval_step(model, config, args)
+    metrics = validate(eval_step, val_loader, device, 0, logger=logger)
+
+    # `or -1` would drop epoch 0; the reference's `joint_optimization == epoch`
+    # accepts it
+    jo = getattr(args, "joint_optimization", None)
+    joint_epoch = int(jo) if jo is not None else -1
+
+    def joint_switch():
+        print_log("[joint optimization] switching trainable set", logger=logger)
+        set_trainable(model, JOINT_PEFT_LIST)
+
+    if 0 <= joint_epoch < start_epoch:     # a resumed run past the switch
+        joint_switch()
+    val_freq = max(int(getattr(args, "val_freq", 1)), 1)
+    for epoch in range(start_epoch, int(config.max_epoch) + 1):
+        train_loader.set_epoch(epoch)
+        meters = AverageMeter(["loss", "acc"])
+        t0 = time.time()
+        pending = [train_step(torch.from_numpy(pts).to(device),
+                              torch.from_numpy(label).to(device))
+                   for pts, label in train_loader]
+        for batch_idx, m in enumerate(pending):   # one fetch per epoch
+            loss_v, acc_v = float(m["loss"]), float(m["acc"])
+            if not np.isfinite(loss_v):
+                print_log(f"[DIVERGED] non-finite loss at epoch {epoch} step "
+                          f"{batch_idx}: {loss_v}", logger=logger)
+            meters.update([loss_v, acc_v])
+        if epoch == joint_epoch:
+            joint_switch()
+        print_log("[Training] EPOCH: %d EpochTime = %.3f (s) Losses = %s" %
+                  (epoch, time.time() - t0, ["%.4f" % v for v in meters.avg()]),
+                  logger=logger)
+        if epoch % val_freq == 0 and epoch != 0:
+            metrics = validate(eval_step, val_loader, device, epoch, logger=logger)
+            if metrics.better_than(best):
+                best = metrics
+                ckpt.save_checkpoint(model, optimizer, epoch, "ckpt-best",
+                                     args.experiment_path,
+                                     metrics=metrics.state_dict(), logger=logger)
+        ckpt.save_checkpoint(model, optimizer, epoch, "ckpt-last", args.experiment_path,
+                             metrics=metrics.state_dict(), logger=logger)
+    return best
+
+
+def finetune_run_net(args, config) -> AccMetric:
+    """Full fine-tuning (``tools/runner_finetune.py``): the same loop with
+    every parameter trainable."""
+    args.peft_model = False
+    return run_net(args, config)
+
+
+def test_vote(model, loader, config, args, device: torch.device, times: int = 10,
+              draws: Optional[Iterable[CorruptDraws]] = None) -> float:
+    """Accuracy (%) of the sum of ``times`` votes' logits
+    (``runner_module.py:427-490``): each vote FPS-resamples a cloud to 1200
+    points, keeps a random 1024 of their columns and scale-translates them,
+    then runs the downstream pass alone (no prompters). The votes' draws
+    (``choice``, ``aug_scale``, ``aug_shift``, one per vote in order) come
+    from ``draws`` or a device generator seeded from ``args.seed + 4242``."""
+    npoints = int(config.npoints)
+    gen = torch.Generator(device).manual_seed(int(getattr(args, "seed", 0)) + 4242)
+    draws = iter(draws) if draws is not None else None
+    model.eval()
+    preds, labels = [], []
+    with torch.inference_mode():
+        for pts, label in loader:
+            pts = torch.from_numpy(pts).to(device)
+            logits = 0.0
+            for _ in range(times):
+                dr = next(draws) if draws is not None else CorruptDraws()
+                points = subsample_fps_random(pts, npoints, generator=gen, choice=dr.choice)
+                points = scale_translate(points, generator=gen, scale=dr.aug_scale,
+                                         shift=dr.aug_shift)
+                logits = logits + model(points)
+            preds.append(logits.argmax(-1))
+            labels.append(np.asarray(label))
+    return _accuracy(preds, labels)
 
 
 def test_net(args, config) -> float:
     """Evaluate on the config's test split (``runner_module.test_net``), on
-    ``args.device`` (CUDA unless the caller names another device)."""
-    if getattr(args, "vote", False):
-        raise NotImplementedError("--vote arrives with the training slice")
+    ``args.device`` (CUDA unless the caller names another), from
+    ``--ckpts`` or a seeded init; with ``--vote`` also the 10-vote
+    accuracy. Returns the single-pass accuracy."""
     device = resolve_device(getattr(args, "device", None))
     logger = get_logger(getattr(args, "log_name", "upp_torch"))
     test_ds = build_dataset_from_cfg(config.dataset.test._base_,
@@ -93,6 +275,9 @@ def test_net(args, config) -> float:
     loader = BatchLoader(test_ds, config.dataset.test.others.bs)
     model = init_model(args, config, device, logger=logger)
     eval_step = make_eval_step(model, config, args)
-    acc = validate(eval_step, loader, device, 0, logger=logger)
-    print_log(f"[TEST] acc = {acc:.4f}", logger=logger)
-    return acc
+    metrics = validate(eval_step, loader, device, 0, logger=logger)
+    print_log(f"[TEST] acc = {metrics.acc:.4f}", logger=logger)
+    if getattr(args, "vote", False):
+        acc = test_vote(model, loader, config, args, device)
+        print_log(f"[TEST_VOTE] acc = {acc:.4f}", logger=logger)
+    return metrics.acc

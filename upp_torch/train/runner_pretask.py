@@ -2,11 +2,11 @@
 ``upp_tpu/train/runner_pretask.py``; reference ``tools/runner_pretask.py``).
 
 Trains the rectification and completion prompters with Chamfer and noise
-losses on cropped, noised clouds. One step: augment (scale-translate) →
-viewpoint crop at a random ratio, both halves kept → shell noise, then lidar
-noise drawn from the cloud that already holds it → model → three CD-L1 terms
-plus the noise loss → AdamW. At epoch 20 the rectify set is frozen
-(stage 2); the optimizer's state carries over.
+losses on cropped, noised clouds. One step: augment (the config's
+``data_augmentation``) → viewpoint crop at a random ratio, both halves kept
+→ shell noise, then lidar noise drawn from the cloud that already holds it
+→ model → three CD-L1 terms plus the noise loss → AdamW. At epoch 20 the
+rectify set is frozen (stage 2); the optimizer's state carries over.
 """
 
 from __future__ import annotations
@@ -22,12 +22,13 @@ from .. import resolve_device
 from ..data import build_dataset_from_cfg
 from ..ops.chamfer import chamfer_l1, chamfer_l1_per_sample, chamfer_l2_per_sample
 from ..ops.corrupt import (gaussian_shell_noise, lidar_noise, partial_point_cloud,
-                           scale_translate, separate_point_cloud)
+                           separate_point_cloud)
 from ..ops.fps import fps
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, CDMetric, Metrics, completion_metrics
-from .optim import build_optimizer, count_params, set_trainable
+from .optim import build_optimizer, count_params, set_trainable, step_generator
+from .pipeline import AugmentDraws, resolve_augmentation
 from .runner_cls import build_loaders, init_model
 
 # tools/runner_pretask.py:110-123
@@ -58,46 +59,41 @@ LOSS_NAMES = ("cropping_coarse", "cropping_dense", "dense", "noise_loss", "recal
 
 
 @dataclasses.dataclass
-class PretaskDraws:
-    """The random numbers of one pretask train step. A field left None is
-    drawn: ``num_crop`` and ``shell_u`` from the step's host generator (no
-    device sync), the rest from its device generator. Tests fill them with
-    the JAX package's draws."""
+class PretaskDraws(AugmentDraws):
+    """The random numbers of one pretask train step (with those of its
+    augmentation). A field left None is drawn: ``num_crop`` and ``shell_u``
+    from the step's host generator (no device sync), the rest from its
+    device generator. Tests fill them with the JAX package's draws."""
     num_crop: Optional[int] = None               # in [0.15 N, 0.5 N]
     viewpoints: Optional[torch.Tensor] = None    # [B, 3] crop viewpoints
     shell_u: Optional[float] = None              # U(0, 1): radius (u + 2) / 3
     shell_normal: Optional[torch.Tensor] = None  # [B, GAUSSIAN_NUM, 3]
     lidar_idx: Optional[torch.Tensor] = None     # [LIDAR_NUM]
     lidar_factor: Optional[torch.Tensor] = None  # [LIDAR_NUM]
-    aug_scale: Optional[torch.Tensor] = None     # [B, 1, 3]
-    aug_shift: Optional[torch.Tensor] = None     # [B, 1, 3]
 
 
 def make_pretask_train_step(model, optimizer, config, args):
     """``train_step(gt [B, N, 3], draws=None) -> dict`` of the step's loss
     terms (x1000, recall x100) as 0-d tensors on gt's device, unsynced.
-    Follows ``upp_tpu/train/runner_pretask.py:71-125``."""
+    Follows ``upp_tpu/train/runner_pretask.py:71-125``. The draws come,
+    unless given, from generators seeded from ``args.seed + 777`` and the
+    optimizer's count of calls (``optim.step_generator``)."""
     npoints = int(config.npoints)
     n_pts_ds = int(config.dataset.train._base_.N_POINTS)
-    augmentation = config.get("data_augmentation", None)
-    if augmentation not in (None, "none", "scale-translate"):
-        raise NotImplementedError(f"augmentation {augmentation!r} is not ported "
-                                  "yet (only 'scale-translate')")
+    augment = resolve_augmentation(config.get("data_augmentation", None))
     add_noise = bool(getattr(args, "noise", True))
     noise_types = tuple(getattr(args, "noise_type", ("gaussian_noise", "lidar_noise")))
     crop_lo, crop_hi = int(n_pts_ds * 0.15), int(n_pts_ds * 0.5)
     seed = int(getattr(args, "seed", 0)) + 777
-    host_gen = torch.Generator().manual_seed(seed)
-    gen = None                      # the device generator, made at the first step
+    host_gens, gens = {}, {}        # made at the first step
 
     def train_step(gt: torch.Tensor, draws: Optional[PretaskDraws] = None):
-        nonlocal gen
         dr = draws or PretaskDraws()
-        if gen is None:
-            gen = torch.Generator(gt.device).manual_seed(seed)
+        host_gen = step_generator(host_gens, torch.device("cpu"), seed, optimizer.calls)
+        gen = step_generator(gens, gt.device, seed, optimizer.calls)
         model.train()
-        if augmentation == "scale-translate":
-            gt = scale_translate(gt, generator=gen, scale=dr.aug_scale, shift=dr.aug_shift)
+        if augment is not None:
+            gt = augment(gt, gen, dr)
         num_crop = dr.num_crop
         if num_crop is None:
             num_crop = int(torch.randint(crop_lo, crop_hi + 1, (), generator=host_gen))
@@ -237,9 +233,9 @@ def run_net(args, config) -> CDMetric:
 
     start_epoch, best = 0, CDMetric(1000.0)
     if getattr(args, "resume", False):
-        start_epoch, saved = ckpt.resume_checkpoint(model, optimizer,
-                                                    args.experiment_path, logger=logger)
-        optimizer.num_steps = start_epoch * steps_per_epoch
+        start_epoch, saved = ckpt.resume_checkpoint(model, optimizer, args.experiment_path,
+                                                    logger=logger,
+                                                    steps_per_epoch=steps_per_epoch)
         best = CDMetric(saved.get("cd", 1000.0))
     if start_epoch > STAGE2_EPOCH:      # a resumed run past the switch stays in stage 2
         set_trainable(model, PRETASK_STAGE2_LIST)
