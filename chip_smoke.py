@@ -68,13 +68,37 @@ Phases, each fatal on failure:
      ``cfgs/unify_synthetic_cls.yaml`` on a 48-cloud synthetic split, batch
      24, epochs 0-2 with ``--joint_optimization 1`` (epoch 2 trains the
      joint set), then ``--test --vote --ckpts <its ckpt-best.pth>``: epoch
-     times, validation, test and vote accuracy.
-Launch counts are reset right before each path run (4, 5, 7, 8, 10, 11)
-and read right after; the kernel-vs-plain comparisons do not count. Before
-the last line it prints the ``kernels`` JSON line (FPS and kNN launches of
-one cls train step, Chamfer's of one pretask train step) and the card's
-name and power limit; the last line is the ``{"ok": true, "device": ...}``
-JSON object.
+     times, validation, test and vote accuracy;
+ 14. seg train, UPP PEFT: 3 steps of ``runner_seg.make_seg_train_step`` on
+     the hermetic twin of ``cfgs/unify_shapenetpart_seg.yaml`` (each split
+     ``SyntheticPart``, 2048 points) at full width, batch 30 (its
+     ``total_bs``), ``SEG_PEFT_LIST``: the launch counts of one step (raw
+     crop to 1536 points, +24 shell, +64 lidar, rectify, completion,
+     downstream over 128 groups, kNN k=3 to the 2048 query points), finite
+     loss, trainable tensors changed and others bit-unchanged, ms per step
+     (mean of 10 after a warm-up), peak memory, a profile over 3 steps;
+ 15. seg eval: the UPP eval step at batch 30: launch counts, normalised
+     log-probabilities, ms per batch, a profile;
+ 16. seg train, full fine-tune: ``PointTransformer_seg`` (the model of
+     ``cfgs/finetune_shapenetpart_seg.yaml``), every parameter trainable:
+     as phase 14 (FPS 2048→128, kNN k=32 and the k=5 propagation);
+ 17. seg card vs CPU at batch 4, same weights and draws (drawn on the CPU),
+     dropout and drop-path off, no clip: eval log-probabilities within rtol
+     1e-3 / atol 2e-3, equal argmax wherever the top two differ by more
+     than 4e-3; train loss within rtol 1e-3; trainable-gradient norm within
+     rtol 1e-2;
+ 18. seg CLI: ``upp_torch.main --peft_model`` trains the seg twin (60
+     training clouds, batch 30) for epochs 0 and 1, then ``--test
+     --peft_model --ckpts <its ckpt-best.pth>``: the mIoU lines of every
+     validation and the test, both checkpoints.
+Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
+clouds and on tie-heavy grid clouds of 2048 points. Launch counts are reset
+right before each path run (4, 5, 7, 8, 10, 11, 14, 15, 16) and read right
+after; the kernel-vs-plain comparisons do not count. Before the last line
+it prints the ``kernels`` JSON line (FPS and kNN launches of one cls train
+step and of one seg PEFT train step, Chamfer's of one pretask train step;
+each entry names its ``path``) and the card's name and power limit; the
+last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
 from __future__ import annotations
@@ -101,6 +125,12 @@ B_PRETASK_CPU = 4       # pretask card-vs-CPU comparison batch
 CLI_CLOUDS = 48         # per split of the CLI phase's synthetic dataset
 CLI_BS = 24
 CLI_DIR = "build/chip_smoke"
+SEG_CFG = "cfgs/unify_shapenetpart_seg.yaml"
+SEG_FT_CFG = "cfgs/finetune_shapenetpart_seg.yaml"
+B_SEG = 30              # total_bs of the published seg configs
+B_SEG_CPU = 4           # seg card-vs-CPU comparison batch
+N_SEG = 2048            # N_POINTS of cfgs/dataset_configs/ShapeNetPart.yaml
+SEG_CLI_CLOUDS = 60     # training split of the seg CLI phase (val and test: 30)
 N_POINTS = 8192
 NPOINTS = 1024
 SEED = 0
@@ -157,6 +187,24 @@ PRETASK_EVAL_CALLS = Counter({
 })
 # (call, batch) of the kNN backward checks: the pretask's gradient shapes at
 # batch 64, the cls train joint stage's at batch 120
+SEG_TRAIN_CALLS = Counter({
+    # rectify pass over the 1536-point raw crop + 24 shell + 64 lidar points
+    ("fps", 1624, 32, False): 1, ("knn", 32, 1624, 16, True): 1,
+    ("fps", 32, 32, False): 1, ("knn", 32, 32, 16, True): 1,        # SA group
+    ("knn", 32, 32, 16, False): 1,            # propagation2 interp
+    ("knn", 1624, 32, 16, False): 1,          # propagation1 interp
+    # completion pass over the 1459 points the rectify drop keeps
+    ("fps", 1459, 32, False): 1, ("knn", 32, 1459, 16, True): 1,
+    ("knn", 32, 32, 6, False): 1,             # mask-token propagate
+    ("fps", 1024, 384, False): 1, ("fps", 1843, 1536, False): 1,
+    # downstream pass, 128 groups of 32, then propagation_0 to the 2048 queries
+    ("fps", 1536, 128, False): 1, ("knn", 128, 1536, 32, True): 1,
+    ("knn", 2048, 128, 3, False): 1,
+})
+SEG_FT_CALLS = Counter({("fps", 2048, 128, False): 1, ("knn", 128, 2048, 32, True): 1,
+                        ("knn", 2048, 128, 5, False): 1})    # PointTransformer_seg
+SEG_EVAL_CALLS = Counter({("fps", 2048, 128, False): 1, ("knn", 128, 2048, 32, True): 1,
+                          ("knn", 2048, 128, 3, False): 1})  # downstream pass alone
 KNN_GRAD_CALLS = ((("knn", 32, 32, 6, False), B_PRETASK), (("knn", 32, 1024, 16, True), B_PRETASK),
                   (("knn", 64, 32, 8, False), B), (("knn", 64, 1024, 32, True), B),
                   (("knn", 32, 32, 6, False), B), (("knn", 32, 972, 16, True), B))
@@ -295,12 +343,19 @@ def bound_parts(call, bsz):
     return nbytes, 10 * bsz * s * n
 
 
+def seg_shapes():
+    """Every kernel shape of the seg train (PEFT, fine-tune) and eval steps."""
+    return sorted(set(SEG_TRAIN_CALLS) | set(SEG_FT_CALLS) | set(SEG_EVAL_CALLS))
+
+
 def kernel_shapes():
     """(call, batch) of every kernel shape the paths run: the classification
-    shapes at batch 120, the pretask ones it does not share at batch 64."""
+    shapes at batch 120, the pretask ones it does not share at batch 64, the
+    segmentation ones at batch 30."""
     cls = set(CLEAN_CALLS) | set(ROBUST_CALLS)
     pretask = (set(PRETASK_TRAIN_CALLS) | set(PRETASK_EVAL_CALLS)) - cls
-    return [(c, B) for c in sorted(cls)] + [(c, B_PRETASK) for c in sorted(pretask)]
+    return ([(c, B) for c in sorted(cls)] + [(c, B_PRETASK) for c in sorted(pretask)]
+            + [(c, B_SEG) for c in seg_shapes()])
 
 
 def _check_fps(call, clouds, gen):
@@ -411,13 +466,14 @@ def _check(call, clouds, gen):
     return _check_chamfer(call, clouds, gen)
 
 
-def phase_kernels(clouds, card):
-    """Kernel vs plain on the card at every path shape. Returns per-shape
-    rows."""
+def phase_kernels(clouds, seg_clouds, card):
+    """Kernel vs plain on the card at every path shape (the seg shapes on
+    the seg clouds). Returns per-shape rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for call, bsz in kernel_shapes():
-        err, ms, plain_ms = _check(call, clouds[:bsz], gen)
+        src = seg_clouds if bsz == B_SEG else clouds
+        err, ms, plain_ms = _check(call, src[:bsz], gen)
         nbytes, ops = bound_parts(call, bsz)
         rows.append({"call": list(call), "batch": bsz, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bytes": nbytes, "ops": ops})
@@ -436,6 +492,7 @@ def phase_kernel_ties_and_edges(card):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [("ties", call, tie_clouds(B_PRETASK if call[0] == "chamfer" else B, 8192, gen))
              for call in TIE_CALLS]
+    cases += [("seg ties", call, tie_clouds(B_SEG, N_SEG, gen)) for call in seg_shapes()]
     for call in EDGE_CALLS:
         n = max(call[1:3]) if call[0] in ("knn", "chamfer") else call[1]
         cases.append(("edge", call, torch.randn((B_EDGE, n, 3), generator=gen,
@@ -629,16 +686,16 @@ def check_calls(name, rec, want):
     return counts
 
 
-def kernel_entry(name, rows, table, launches):
-    """The ``kernels`` JSON entry of one kernel: ms, plain and bound summed
-    over one step's calls (``table``) from the per-shape rows."""
+def kernel_entry(name, rows, table, launches, bsz, path):
+    """The ``kernels`` JSON entry of one kernel on one path: ms, plain and
+    bound summed over one step's calls (``table``, at batch ``bsz``) from
+    the per-shape rows."""
     src, replaces = KERNEL_SOURCES[name]
-    bsz = B if table is ROBUST_CALLS else B_PRETASK
     mine = [(r, table[tuple(r["call"])]) for r in rows
             if r["call"][0] == name and r["batch"] == bsz and tuple(r["call"]) in table]
     t_bytes = sum(r["bytes"] * c for r, c in mine) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(r["ops"] * c for r, c in mine) / F32_FLOP_PER_S * 1e3
-    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+    return {"name": name, "path": path, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["call"][0] == name),
             "ms": sum(r["ms"] * c for r, c in mine),
@@ -986,6 +1043,201 @@ def phase_cls_cli(card):
           f"vote acc {vote[0]}, {test_s:.1f} s ({card})", flush=True)
 
 
+def seg_config(path, sizes=None):
+    """The hermetic twin of the seg config at ``path`` as a dict: each
+    split's dataset ``SyntheticPart`` with the ShapeNetPart config's 2048
+    points (``sizes``: clouds per split)."""
+    import yaml
+    cfg = yaml.safe_load(open(path))
+    for split in ("train", "val", "test"):
+        cfg["dataset"][split]["_base_"] = {"NAME": "SyntheticPart", "N_POINTS": N_SEG,
+                                           "SIZE": (sizes or {}).get(split, B_SEG)}
+    return cfg
+
+
+def seg_batch(n, device):
+    """(clouds [n, 2048, 3], categories [n], part labels [n, 2048]) of the
+    ``SyntheticPart`` training split, on ``device``."""
+    from upp_torch.data.synthetic import SyntheticPartDataset
+    from upp_torch.utils.config import ConfigDict
+    ds = SyntheticPartDataset(ConfigDict(N_POINTS=N_SEG, SIZE=n, subset="train"))
+    items = [ds[i] for i in range(n)]
+    return (torch.from_numpy(np.stack([it[0] for it in items])).to(device),
+            torch.tensor([int(it[1][0]) for it in items], device=device),
+            torch.from_numpy(np.stack([it[2] for it in items])).long().to(device))
+
+
+def seg_setup(config, device, unify):
+    """(model, train step, eval step) of a seg path from the seeded weights:
+    ``SEG_PEFT_LIST`` trainable for the UPP model, everything for the
+    fine-tune."""
+    from upp_torch.train.optim import build_optimizer, set_trainable
+    from upp_torch.train.runner_cls import init_model
+    from upp_torch.train.runner_seg import (SEG_PEFT_LIST, make_seg_eval_step,
+                                            make_seg_train_step)
+    args = types.SimpleNamespace(seed=SEED)
+    model = init_model(args, config, device)
+    set_trainable(model, SEG_PEFT_LIST if unify else None)
+    optimizer = build_optimizer(config, model, steps_per_epoch=1)
+    return (model, make_seg_train_step(model, optimizer, config, args, unify),
+            make_seg_eval_step(model, config, unify))
+
+
+def phase_seg_train(name, batch, config, card, device, unify, want):
+    """3 seg train steps at full width, batch 30: the launch counts of one
+    step (``want``), finite loss and accuracy, every trainable tensor the
+    step reaches changed and every other one bit-unchanged; ms per step
+    (mean of 10 after a warm-up), peak memory and a profile over 3 steps.
+    Returns (launch counts of one step, the eval step)."""
+    model, train_step, eval_step = seg_setup(config, device, unify)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with Recorder() as rec:
+        out = train_step(*batch)
+        torch.cuda.synchronize()
+    counts = check_calls(name, rec, want)
+    history = [out] + [train_step(*batch) for _ in range(2)]
+    for i, m in enumerate(history):
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{name} step {i}: not finite: {vals}")
+        print(f"[{name}] step {i}: loss {vals['loss']:.4f}, acc {vals['acc']:.2f}", flush=True)
+    used = {n for n, p in model.named_parameters() if p.grad is not None}
+    n_moved, n_fixed = _check_moves(name, model, before, used)
+    step_ms = cuda_ms(lambda: train_step(*batch), reps=10, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{name}] launches of one step {counts}; {n_moved} trainable tensors changed, "
+          f"{n_fixed} others bit-unchanged; {step_ms:.2f} ms/step, "
+          f"{B_SEG / step_ms * 1e3:.1f} clouds/s, peak {peak_gib:.2f} GiB (B={B_SEG}; {card})",
+          flush=True)
+    profile_steps(lambda: train_step(*batch), name, step_ms, card, bsz=B_SEG)
+    return counts, eval_step
+
+
+def phase_seg_eval(eval_step, batch, card):
+    """The UPP seg eval step (downstream pass alone) at batch 30: launch
+    counts, log-probabilities finite and normalised, ms per batch."""
+    pts, cls, _ = batch
+    reset_counts()
+    with Recorder() as rec:
+        logp = eval_step(pts, cls)
+        torch.cuda.synchronize()
+    counts = check_calls("seg eval", rec, SEG_EVAL_CALLS)
+    total = logp.exp().sum(-1)
+    if (logp.shape != (B_SEG, N_SEG, 50) or not torch.isfinite(logp).all()
+            or not torch.allclose(total, torch.ones_like(total), atol=1e-4)):
+        raise AssertionError(f"seg eval: log-probabilities {tuple(logp.shape)} not finite "
+                             "or not normalised")
+    eval_ms = cuda_ms(lambda: eval_step(pts, cls), reps=10, warmup=1)
+    print(f"[seg eval] launches {counts}; {eval_ms:.2f} ms/batch, "
+          f"{B_SEG / eval_ms * 1e3:.1f} clouds/s (B={B_SEG}; {card})", flush=True)
+    profile_steps(lambda: eval_step(pts, cls), "seg eval", eval_ms, card, bsz=B_SEG)
+
+
+def phase_seg_card_vs_cpu(batch, config, card, device):
+    """The UPP seg eval and train steps at batch 4 on the card and on the
+    CPU from the same weights; the train step on the same draws (drawn on
+    the CPU), dropout and drop-path off, no gradient clip: eval
+    log-probabilities within rtol 1e-3 / atol 2e-3 and the same argmax
+    wherever the top two differ by more than 4e-3; train loss within rtol
+    1e-3; the trainable gradients' norm within rtol 1e-2."""
+    from upp_torch.train.pipeline import CorruptDraws
+    from upp_torch.train.runner_seg import GAUSSIAN_NUM, LIDAR_NUM
+    config = copy.deepcopy(config)
+    config.grad_norm_clip = None
+    bsz = B_SEG_CPU
+    gen = torch.Generator().manual_seed(SEED + 6)
+    v = torch.randn((bsz, 3), generator=gen)
+    kept = N_SEG - N_SEG // 4
+    draws = CorruptDraws(
+        viewpoints=v / torch.linalg.norm(v, dim=-1, keepdim=True),
+        shell_normal=torch.randn((bsz, GAUSSIAN_NUM, 3), generator=gen),
+        lidar_idx=torch.randint(0, kept + GAUSSIAN_NUM, (LIDAR_NUM,), generator=gen),
+        lidar_factor=1.2 + 0.3 * torch.rand((LIDAR_NUM,), generator=gen),
+        aug_scale=2 / 3 + (3 / 2 - 2 / 3) * torch.rand((bsz, 1, 3), generator=gen),
+        aug_shift=0.2 * (2 * torch.rand((bsz, 1, 3), generator=gen) - 1))
+    results = []
+    for dev in (device, torch.device("cpu")):
+        pts, cls, lab = (t[:bsz].to(dev) for t in batch)
+        model, train_step, eval_step = seg_setup(config, dev, unify=True)
+        no_dropout(model)
+        logp = eval_step(pts, cls).cpu()
+        on_dev = CorruptDraws(**{k: (x.to(dev) if torch.is_tensor(x) else x)
+                                 for k, x in vars(draws).items()})
+        out = train_step(pts, cls, lab, on_dev)
+        gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()
+                               if p.grad is not None))
+        results.append((logp, float(out["loss"]), float(gnorm)))
+    (card_p, card_l, card_g), (cpu_p, cpu_l, cpu_g) = results
+    diff = (card_p - cpu_p).abs().max().item()
+    if not torch.allclose(card_p, cpu_p, rtol=1e-3, atol=2e-3):
+        raise AssertionError(f"seg card vs CPU: log-probabilities differ by {diff}")
+    top2 = cpu_p.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 4e-3
+    same = card_p.argmax(-1) == cpu_p.argmax(-1)
+    if not same[clear].all():
+        raise AssertionError(f"seg card vs CPU: argmax differs at {(~same[clear]).sum().item()} "
+                             "points with a clear top")
+    if not np.isclose(card_l, cpu_l, rtol=1e-3, atol=0.0):
+        raise AssertionError(f"seg card vs CPU: train loss {card_l} vs {cpu_l}")
+    if not np.isclose(card_g, cpu_g, rtol=1e-2, atol=0.0):
+        raise AssertionError(f"seg card vs CPU: grad norm {card_g} vs {cpu_g}")
+    print(f"[seg card vs cpu] B={bsz}: eval max |log-prob diff| {diff:.3g} (rtol 1e-3, atol "
+          f"2e-3), argmax equal at all {int(clear.sum())} of {clear.numel()} points with a "
+          f"top-two gap above 4e-3 ({int(same.sum())} equal in all); train loss card "
+          f"{card_l:.6f}, cpu {cpu_l:.6f} (rtol 1e-3); trainable grad norm card {card_g:.6g}, "
+          f"cpu {cpu_g:.6g} (rtol 1e-2) ({card})", flush=True)
+
+
+def phase_seg_cli(card):
+    """``upp_torch.main --peft_model`` trains the hermetic seg twin (60
+    training clouds, batch 30) for epochs 0 and 1, then ``--test
+    --peft_model --ckpts`` its ``ckpt-best.pth``: the mIoU lines of every
+    validation and of the test, both checkpoints."""
+    import yaml
+    from upp_torch.main import main as upp_main
+    cfg = seg_config(SEG_CFG, {"train": SEG_CLI_CLOUDS})
+    cfg.update(max_epoch=1, total_bs=B_SEG)
+    os.makedirs(CLI_DIR, exist_ok=True)
+    paths = {}
+    for name in ("seg_cli_train", "seg_cli_test"):
+        paths[name] = os.path.join(CLI_DIR, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    summary = re.compile(r"Epoch (\d+) test Accuracy: ([\d.]+)  Class avg mIOU: ([\d.]+)  "
+                         r"Instance avg mIOU: ([\d.]+)")
+    t0 = time.time()
+    upp_main(["--peft_model", "--config", paths["seg_cli_train"], "--exp_name", "chip_smoke"])
+    train_s = time.time() - t0
+    runs = "experiments/seg_cli_train/plain-network/peft-chip_smoke"
+    run = os.path.join(runs, sorted(os.listdir(runs))[-1])
+    log = open(os.path.join(run, "seg_cli_train.log")).read()
+    epochs = re.findall(r"EPOCH: (\d+) EpochTime = ([\d.]+) \(s\) Losses = \['([\d.]+)'", log)
+    vals = summary.findall(log)
+    best_pth = os.path.join(run, "ckpt-best.pth")
+    if (len(epochs) != 2 or len(vals) != 2 or log.count("eval mIoU of ") < 8
+            or not all(0.0 < float(loss) < 100.0 for _, _, loss in epochs)
+            or not os.path.exists(best_pth)
+            or not os.path.exists(os.path.join(run, "ckpt-last.pth"))):
+        raise AssertionError(f"seg CLI training: epochs {epochs}, log tail {log[-2000:]}")
+    t0 = time.time()
+    upp_main(["--test", "--peft_model", "--config", paths["seg_cli_test"], "--ckpts", best_pth,
+              "--exp_name", "chip_smoke"])
+    test_s = time.time() - t0
+    test_dir = "experiments/seg_cli_test/ckpt-best/test-peft-chip_smoke"
+    test_log = open(os.path.join(test_dir, sorted(os.listdir(test_dir))[-1],
+                                 "seg_cli_test.log")).read()
+    test = summary.findall(test_log)
+    if not test or "missing_keys" in test_log or "eval mIoU of " not in test_log:
+        raise AssertionError(f"seg CLI test: log tail {test_log[-2000:]}")
+    print(f"[seg cli] {SEG_CLI_CLOUDS} training clouds, batch {B_SEG}: epoch times (s) and "
+          f"mean losses {', '.join(f'{e}: {t} {loss}' for e, t, loss in epochs)}; validation (epoch, accuracy, class "
+          f"mIoU, instance mIoU) {vals}; training {train_s:.1f} s of wall time; --test "
+          f"--peft_model --ckpts ckpt-best.pth: {test[0][1:]}, {test_s:.1f} s ({card})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1015,10 +1267,11 @@ def main() -> int:
     clouds_np, labels_np = synthetic_clouds(B)
     clouds = torch.from_numpy(clouds_np).to(device)
     labels = torch.from_numpy(labels_np).to(device)
+    seg = seg_batch(B_SEG, device)
 
     # 2. kernels vs plain, ties and edges, host cost; 3. kNN backward
     with torch.inference_mode():
-        rows = phase_kernels(clouds, card)
+        rows = phase_kernels(clouds, seg[0], card)
         phase_kernel_ties_and_edges(card)
         phase_host_cost(clouds, card)
         phase_chamfer_yardstick(clouds, card)
@@ -1095,13 +1348,32 @@ def main() -> int:
     phase_cls_card_vs_cpu(clouds, labels, config, card, device)
     phase_cls_cli(card)
 
+    # 14. seg PEFT train, 15. seg fine-tune train, 16. seg eval,
+    # 17. seg card vs CPU, 18. seg CLI
+    from upp_torch.utils.config import ConfigDict
+    seg_cfg = ConfigDict.from_nested(seg_config(SEG_CFG))
+    seg_counts, seg_eval = phase_seg_train("seg train PEFT", seg, seg_cfg, card, device,
+                                           True, SEG_TRAIN_CALLS)
+    phase_seg_eval(seg_eval, seg, card)
+    del seg_eval
+    phase_seg_train("seg train fine-tune", seg, ConfigDict.from_nested(seg_config(SEG_FT_CFG)),
+                    card, device, False, SEG_FT_CALLS)
+    phase_seg_card_vs_cpu(seg, seg_cfg, card, device)
+    phase_seg_cli(card)
+
     # the cls train step's forward makes the robust step's kernel calls
-    kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"]),
-               kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"]),
-               kernel_entry("chamfer", rows, PRETASK_TRAIN_CALLS, pretask_counts["chamfer"])]
-    print("[kernels] ms/plain_ms/bound_ms: fps and knn summed over one cls train step's "
-          f"calls (B={B}, the robust step's), launches from one cls train step; chamfer "
-          f"over one pretask train step (B={B_PRETASK}); {card}")
+    kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"], B, "cls train step"),
+               kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"], B, "cls train step"),
+               kernel_entry("chamfer", rows, PRETASK_TRAIN_CALLS, pretask_counts["chamfer"],
+                            B_PRETASK, "pretask train step"),
+               kernel_entry("fps", rows, SEG_TRAIN_CALLS, seg_counts["fps"], B_SEG,
+                            "seg PEFT train step"),
+               kernel_entry("knn", rows, SEG_TRAIN_CALLS, seg_counts["knn"], B_SEG,
+                            "seg PEFT train step")]
+    print("[kernels] ms/plain_ms/bound_ms summed over one step's calls of each entry's path: "
+          f"fps and knn over one cls train step (B={B}, the robust step's calls) and one seg "
+          f"PEFT train step (B={B_SEG}); chamfer over one pretask train step (B={B_PRETASK}); "
+          f"launches from those steps' runs; {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -146,6 +146,97 @@ def test_adamw_accumulation_matches_jax_across_the_joint_switch(pair, k):
     assert head and all(torch.equal(got[n], state0[n]) for n in head) == (k == 4)
 
 
+def test_unfrozen_tensors_sum_fewer_gradients_than_jax_full_tree(pair):
+    """The accepted difference (``optim.py``): ``step_per_update`` k = 4,
+    the PEFT set for calls 0-2, the joint set from call 3, the real step at
+    call 3; JAX's ``accumulate_every`` gets full-tree gradients at every
+    call, the port its own (none for a parameter frozen at that call). No
+    clip, so no tensor sees another's gradients. The tensors the switch
+    unfreezes differ from JAX's (it sums calls 0-3, the port call 3 alone);
+    every other tensor equals JAX's at rtol 1e-6, atol 5e-8, and the head,
+    frozen by the switch, is bit-unchanged in both."""
+    _, variables, tm = pair
+    config = ConfigDict.from_nested({**CONFIG, "step_per_update": 4})
+    params = variables["params"]
+    rng = np.random.default_rng(41)
+    grads = [jax.tree_util.tree_map(
+        lambda x: rng.standard_normal(np.shape(x)).astype(np.float32), params)
+        for _ in range(4)]
+    sets = [PEFT_LIST] * 3 + [JOINT_PEFT_LIST]
+    tx, _, _ = joptim.build_optimizer(config, params, 2, peft_list=PEFT_LIST)
+    opt_state = tx.init(params)
+    for i, g in enumerate(grads):
+        if i == 3:
+            tx, _, _ = joptim.build_optimizer(config, params, 2, peft_list=JOINT_PEFT_LIST)
+        updates, opt_state = tx.update(g, opt_state, params)
+        params = optax.apply_updates(params, updates)
+
+    state0 = {n: v.clone() for n, v in tm.state_dict().items()}
+    try:
+        opt = optim.build_optimizer(config, tm, steps_per_epoch=2)
+        for g, peft in zip(grads, sets):
+            optim.set_trainable(tm, peft)
+            mapped = _port_state(tm, g, variables)
+            opt.zero_grad()
+            for n, p in tm.named_parameters():
+                if p.requires_grad:
+                    p.grad = mapped[n].clone() if p.grad is None else p.grad + mapped[n]
+            opt.step()
+        assert opt.num_steps == 1
+        got = {n: v.clone() for n, v in tm.state_dict().items()}
+    finally:
+        tm.load_state_dict(state0)
+        optim.set_trainable(tm, None)
+        tm.zero_grad(set_to_none=True)
+    want = _port_state(tm, params, variables)
+    names = [n for n, _ in tm.named_parameters()]
+    unfrozen = {n for n in names if optim.peft_detect(n, JOINT_PEFT_LIST)
+                and not optim.peft_detect(n, PEFT_LIST)}
+    differ = {n for n in names if not np.allclose(got[n].numpy(), want[n].numpy(),
+                                                  rtol=1e-6, atol=5e-8)}
+    assert unfrozen and differ == unfrozen
+    head = [n for n in names if n.startswith("cls_head_finetune")]
+    assert head and all(torch.equal(got[n], state0[n]) for n in head)
+    assert all(not torch.equal(got[n], state0[n]) for n in unfrozen)
+
+
+FETCH_STEPS = 40
+
+
+def test_divergence_is_logged_within_the_fetch_lag(pair, tmp_path, monkeypatch):
+    """``run_net`` fetches a step's metrics ``FETCH_LAG`` (16) steps after
+    its dispatch: a loss that turns NaN at step 3 of a 40-step epoch is
+    logged as ``[DIVERGED]`` before step 20 is dispatched (counted by the
+    dispatched steps, not by time), and the epoch's other losses average."""
+    dispatched, logged = [], []
+
+    def fake_train_step(model, optimizer, config, args):
+        def step(pts, label):
+            dispatched.append(len(dispatched))
+            bad = len(dispatched) == 4
+            return {"loss": torch.tensor(float("nan") if bad else 1.0), "acc": torch.tensor(50.0)}
+        return step
+
+    def record(msg, logger=None):
+        logged.append((msg, len(dispatched)))
+
+    monkeypatch.setattr(runner_cls, "make_train_step", fake_train_step)
+    monkeypatch.setattr(runner_cls, "validate", lambda *a, **k: AccMetric(0.0))
+    monkeypatch.setattr(runner_cls, "print_log", record)
+    base = {"NAME": "Synthetic", "N_POINTS": 64, "NUM_CATEGORY": 5, "SIZE": FETCH_STEPS}
+    config = ConfigDict.from_nested({
+        **CONFIG, "model": SMALL, "max_epoch": 0,
+        "dataset": {s: {"_base_": base, "others": {"subset": s, "bs": 1}}
+                    for s in ("train", "val")}})
+    args = types.SimpleNamespace(seed=0, device="cpu", experiment_path=str(tmp_path))
+    runner_cls.run_net(args, config)
+    assert len(dispatched) == FETCH_STEPS
+    (when,) = [n for msg, n in logged if "[DIVERGED]" in msg and "step 3:" in msg]
+    assert when <= 20 and runner_cls.FETCH_LAG == 16
+    (epoch,) = [msg for msg, _ in logged if msg.startswith("[Training] EPOCH: 0")]
+    assert "nan" in epoch
+
+
 def test_resume_of_a_checkpoint_without_a_step_count(pair, tmp_path):
     """An optimizer state saved without ``num_steps`` (the layout before
     the count was saved) resumes at start_epoch x steps_per_epoch real

@@ -42,17 +42,19 @@ N_NOISE = 24
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def random_jax_variables(jax_model, point_num, n_in, seed, **init_kw):
+def random_jax_variables(jax_model, point_num, n_in, seed, inputs=None, **init_kw):
     """Seeded random numbers in the shape of ``jax_model``'s variables:
     kernels ~ N(0, 1/fan_in), norm scales ~ 1, running variances in
     [0.5, 1.5], everything else ~ N(0, 0.1). ``init_kw`` are the keyword
     arguments of the model call that creates every variable (the
-    classifier's three-pass call by default)."""
+    classifier's three-pass call by default), ``inputs`` its positional
+    arrays (zero clouds [2, n_in, 3] by default)."""
     rngs = {"params": jax.random.key(0), "dropout": jax.random.key(1),
             "droppath": jax.random.key(2)}
     kw = init_kw or dict(completion_prompt=True, denoise=True, deterministic=True)
+    inputs = (jnp.zeros((2, n_in, 3)),) if inputs is None else inputs
     shapes = jax.eval_shape(lambda: jax_model.init(
-        rngs, jnp.zeros((2, n_in, 3)), point_num=point_num, **kw))
+        rngs, *inputs, point_num=point_num, **kw))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -70,10 +72,10 @@ def random_jax_variables(jax_model, point_num, n_in, seed, **init_kw):
     return jax.tree_util.tree_map_with_path(fill, dict(shapes))
 
 
-def build_pair(model_cfg, point_num, n_in, seed=0, **init_kw):
+def build_pair(model_cfg, point_num, n_in, seed=0, inputs=None, **init_kw):
     """(JAX model, its variables, the port model holding the same weights)."""
     jm = jax_build(ConfigDict.from_nested(model_cfg))
-    variables = random_jax_variables(jm, point_num, n_in, seed, **init_kw)
+    variables = random_jax_variables(jm, point_num, n_in, seed, inputs, **init_kw)
     tm = build_model_from_cfg(model_cfg).eval()
     tm.load_state_dict(state_dict_from_jax(variables, tm), strict=True)
     return jm, variables, tm

@@ -1,4 +1,5 @@
-"""Synthetic procedural point-cloud dataset.
+"""Synthetic procedural point-cloud datasets (a copy of ``upp_tpu/data/synthetic.py``):
+``Synthetic`` (classification) and ``SyntheticPart`` (part segmentation).
 
 Not in the reference — added for hermetic tests, smoke training, and
 benchmarking without dataset downloads (the reference's registry pattern makes
@@ -98,3 +99,36 @@ class SyntheticDataset:
             r = rng.uniform(1.05, 1.5, (m, 1)).astype(np.float32)
             pts[-m:] = d * r
         return f"cat{label}", f"sample{index}", (pts, label)
+
+
+@DATASETS.register_module("SyntheticPart")
+class SyntheticPartDataset:
+    """Procedural part-segmentation dataset with ShapeNetPart label semantics:
+    items are (points, cls, seg) like PartNormalDataset; parts are z-slabs of
+    the shape, labelled within the category's official part-id range."""
+
+    CATEGORIES = ["Airplane", "Bag", "Cap", "Car"]
+
+    def __init__(self, config):
+        from .partnormal import SEG_CLASSES
+        self.seg_classes = SEG_CLASSES
+        self.npoints = config.N_POINTS
+        self.size = int(config.get("SIZE", 64))
+        self.subset = config.get("subset", "train")
+        self.seed = int(config.get("seed", 0)) + (0 if "train" in self.subset else 10_000)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        cls = index % len(self.CATEGORIES)
+        cat = self.CATEGORIES[cls]
+        parts = self.seg_classes[cat]
+        rng = np.random.default_rng(self.seed * 917 + index)
+        pts = _GENERATORS[cls](rng, self.npoints).astype(np.float32)
+        pts /= np.max(np.linalg.norm(pts, axis=1))
+        # z-quantile slabs → per-point part labels in the category's range
+        q = np.argsort(np.argsort(pts[:, 2])) / self.npoints
+        seg = parts[0] + np.minimum((q * len(parts)).astype(np.int32),
+                                    len(parts) - 1)
+        return pts, np.array([cls], np.int32), seg.astype(np.int32)

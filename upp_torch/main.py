@@ -6,11 +6,20 @@
         [--ckpts <pretask ckpt-best.pth>] [--joint_optimization 250]      (PEFT training)
     python -m upp_torch.main --test --vote --peft_model --config cfgs/unify_synthetic_cls.yaml \
         --ckpts <ckpt-best.pth>                                          (test, 10-vote test)
+    python -m upp_torch.main --peft_model --config cfgs/unify_shapenetpart_seg.yaml \
+        [--ckpts <ckpt.pth>]                                             (UPP part segmentation)
+    python -m upp_torch.main --finetune_model --config cfgs/finetune_shapenetpart_seg.yaml
+                                                                         (full fine-tune seg)
+    python -m upp_torch.main --test --peft_model --config cfgs/unify_shapenetpart_seg.yaml \
+        --ckpts <ckpt-best.pth>                                          (seg test: mIoU)
 
 Runs on CUDA unless ``--device cpu``. Ported: training and ``--test`` of
 classification configs (``--peft_model`` and ``--finetune_model``, for the
-models the port has) and of pretask configs; dispatch as the reference's
-``main.py:75-103``. Segmentation and MAE pretraining are not ported yet."""
+models the port has), of pretask configs and of segmentation configs
+(``Point_MAE_unify_seg``, ``PointTransformer_seg``); dispatch as the
+reference's ``main.py:75-103``. Training runs get the JSONL (and, where
+tensorboardX imports, TensorBoard) writers under ``args.tfboard_path``. MAE
+pretraining is not ported yet."""
 
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ def main(argv=None):
     from .utils.config import get_config, log_args_to_file, log_config_to_file
     from .utils.logger import get_root_logger
     from .utils.parser import get_args
+    from .utils.writer import make_writers
 
     args = get_args(argv)
     logger = get_root_logger(
@@ -34,20 +44,36 @@ def main(argv=None):
         if split in config.dataset:
             config.dataset[split].others.bs = (
                 1 if task == "pretask" and split == "test" else int(config.total_bs))
+            # the few-shot split comes from --way/--shot/--fold (the JAX
+            # main.py:65-73; the reference parses them and drops them)
+            if config.dataset[split]._base_.get("NAME") == "ModelNetFewShot":
+                for k in ("way", "shot", "fold"):
+                    v = getattr(args, k, None)
+                    if v is not None and v >= 0:
+                        config.dataset[split].others[k] = v
     log_args_to_file(args, "args", logger=logger)
     log_config_to_file(config, "config", logger=logger)
 
-    from .train import runner_cls, runner_pretask
-    if task == "pretask":
-        return (runner_pretask.test_net if args.test else runner_pretask.run_net)(args, config)
-    if task == "classification":
-        if args.test:
+    from .train import runner_cls, runner_pretask, runner_seg
+    if args.test:
+        if task == "segmentation":
+            return runner_seg.test_net(args, config, unify=args.peft_model)
+        if task == "pretask":
+            return runner_pretask.test_net(args, config)
+        if task == "classification":
             return runner_cls.test_net(args, config)
-        if args.finetune_model:
-            return runner_cls.finetune_run_net(args, config)
-        return runner_cls.run_net(args, config)
+    else:
+        writers = make_writers(args)
+        if task == "classification":
+            run = runner_cls.finetune_run_net if args.finetune_model else runner_cls.run_net
+            return run(args, config, *writers)
+        if task == "segmentation":
+            run = runner_seg.finetune_run_net if args.finetune_model else runner_seg.run_net
+            return run(args, config, *writers)
+        if task == "pretask":
+            return runner_pretask.run_net(args, config, *writers)
     raise NotImplementedError(f"upp_torch does not run task {task!r} yet "
-                              "(ported: classification, pretask)")
+                              "(ported: classification, pretask, segmentation)")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ The JAX package stacks every per-block tensor and runs each pass as a
   pretask    → blocks[0:pretask_depth]   (prompts + adapters)
   downstream → blocks[0:prompt depth]    (prompts + adapters [+ propagation])
              → blocks[prompt depth:L]    (adapters)
+  none       → blocks[0:L]               (plain)
   decoder    → its own blocks            (pretask adapters)
+
+The segmentation models also take the outputs of blocks {3, 7, 11} as
+feature taps (``feature_blocks``).
 
 All passes share the one backbone. Block ``i`` carries ``{path}_adapter``
 for i below the path's adapter length and ``{path}_prompts`` [num, C] for i
@@ -135,18 +139,24 @@ def block_drop_path(rate: float, i: int, depth: int) -> float:
 
 def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
                prompt_depth: int, adapter_len: int,
-               classification: bool = False, propagation: Optional[dict] = None):
+               classification: bool = False, propagation: Optional[dict] = None,
+               feature_blocks: Sequence[int] = ()):
     """Run blocks[0:run_depth] as the JAX package's segments: [0,
     prompt_depth) prompted, [prompt_depth, run_depth) not. A segment uses the
-    path's adapters only when they cover all of it (``adapter_len >= hi``)."""
+    path's adapters only when they cover all of it (``adapter_len >= hi``).
+    Returns x, or (x, taps) with ``feature_blocks``: the output of each
+    block whose index is in it, in order."""
     segments = ([(0, prompt_depth, True), (prompt_depth, run_depth, False)]
                 if prompt_depth else [(0, run_depth, False)])
+    taps = []
     for lo, hi, prompted in segments:
         use_adapter = adapter_len >= hi
-        for blk in blocks[lo:hi]:
-            x = blk(x, pos, path=path, prompted=prompted, use_adapter=use_adapter,
-                    classification=classification, propagation=propagation)
-    return x
+        for i in range(lo, hi):
+            x = blocks[i](x, pos, path=path, prompted=prompted, use_adapter=use_adapter,
+                          classification=classification, propagation=propagation)
+            if i in feature_blocks:
+                taps.append(x)
+    return (x, taps) if feature_blocks else x
 
 
 class ScannedEncoderStack(nn.Module):
@@ -178,12 +188,16 @@ class ScannedEncoderStack(nn.Module):
             for i in range(depth))
 
     def forward(self, x, pos, *, path: str, classification: bool = False,
-                propagation: Optional[dict] = None):
-        run_depth = self.run_depth[path]
+                propagation: Optional[dict] = None, feature_blocks: Sequence[int] = ()):
+        """One pass along ``path`` ("none": every block, no prompts, no
+        adapters, the plain stack of ``PointTransformer_seg``); with
+        ``feature_blocks`` returns (x, taps after those blocks)."""
+        run_depth = self.run_depth.get(path, self.depth)
         return run_blocks(self.blocks, x, pos, path=path, run_depth=run_depth,
-                          prompt_depth=min(self.prompt_len[path], run_depth),
-                          adapter_len=self.adapter_len[path],
-                          classification=classification, propagation=propagation)
+                          prompt_depth=min(self.prompt_len.get(path, 0), run_depth),
+                          adapter_len=self.adapter_len.get(path, 0),
+                          classification=classification, propagation=propagation,
+                          feature_blocks=feature_blocks)
 
 
 class ScannedDecoderStack(nn.Module):

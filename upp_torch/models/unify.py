@@ -14,7 +14,7 @@ updated once per pass in order; dropout; drop-path).
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,18 +50,22 @@ class _UnifyCore(nn.Module):
 
     vis_short = 16
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, num_group: Optional[int] = None):
+        """``num_group``: the group count of the rectify and completion
+        geometry, the config's unless given (the segmentation model keeps
+        64 while its downstream pass groups ``cfg.num_group``)."""
         super().__init__()
         tc = cfg.transformer_config
-        trans_dim, group_size, num_group = tc.trans_dim, cfg.group_size, cfg.num_group
+        trans_dim, group_size = tc.trans_dim, cfg.group_size
+        geometry = cfg.num_group if num_group is None else num_group
         drop_path_rate = tc.drop_path_rate
         self.trans_dim = trans_dim
         self.group_size = group_size
-        self.num_group = num_group
+        self.num_group = cfg.num_group         # the downstream pass's groups
         # visible groups: the reference hardcodes the 64-group anchor; the
         # JAX package generalises to num_group (identical at 64)
-        self.vis_num = num_group - int(tc.mask_ratio * num_group)
-        n_mask = num_group - self.vis_num
+        self.vis_num = geometry - int(tc.mask_ratio * geometry)
+        n_mask = geometry - self.vis_num
         self.encoder = Encoder(tc.encoder_dims)
         self.pos_embed = PosEmbedMLP(trans_dim)
         self.blocks = ScannedEncoderStack(

@@ -8,7 +8,8 @@ draws themselves, so a test can feed both packages the same numbers (JAX's
 threefry and torch's Philox give different numbers from the same seed).
 Variable-size crops are static-shape masked ops: the crop/partial split is a
 mask from a distance threshold, and masked FPS with an explicit start
-resamples each side to a fixed size.
+resamples each side to a fixed size; the raw crop (no resampling) is a
+stable sort by the distance to the viewpoint.
 """
 
 from __future__ import annotations
@@ -60,16 +61,20 @@ def _viewpoints(B: int, viewpoint, generator, device) -> torch.Tensor:
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
+def _viewpoint_dist(xyz: torch.Tensor, viewpoint, generator) -> torch.Tensor:
+    """Squared distance [B, N] of each point to its cloud's viewpoint."""
+    v = _viewpoints(xyz.shape[0], viewpoint, generator, xyz.device)
+    dx = xyz[..., 0] - v[:, 0:1]
+    dy = xyz[..., 1] - v[:, 1:2]
+    dz = xyz[..., 2] - v[:, 2:3]
+    return dx * dx + dy * dy + dz * dz
+
+
 def _crop_masks(xyz: torch.Tensor, num_crop: int, viewpoint, generator):
     """Squared viewpoint distance d [B, N] and the crop mask: the nearest
     ``num_crop`` points, ties at the threshold taken in index order exactly
     where a stable sort would place them."""
-    B = xyz.shape[0]
-    v = _viewpoints(B, viewpoint, generator, xyz.device)
-    dx = xyz[..., 0] - v[:, 0:1]
-    dy = xyz[..., 1] - v[:, 1:2]
-    dz = xyz[..., 2] - v[:, 2:3]
-    d = dx * dx + dy * dy + dz * dz
+    d = _viewpoint_dist(xyz, viewpoint, generator)
     thresh = torch.kthvalue(d, num_crop, dim=1, keepdim=True).values
     below = d < thresh
     at = d == thresh
@@ -99,14 +104,24 @@ def partial_point_cloud(xyz: torch.Tensor, num_crop: int,
 
 def separate_point_cloud(xyz: torch.Tensor, num_crop: int,
                          sample_points: int = 1024, *, viewpoint=None,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         resample: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Viewpoint crop → (partial, crop), both FPS-resampled to
-    ``sample_points`` (the JAX package's resampled path): per sample a
-    viewpoint ([3] or [B, 3], else a random unit vector), the nearest
-    ``num_crop`` points form the crop, the rest the partial cloud; each is
-    resampled by masked FPS starting from its point nearest the viewpoint.
-    Requires num_crop >= sample_points and N - num_crop >= sample_points."""
+    """Viewpoint crop → (partial, crop): per sample a viewpoint ([3] or
+    [B, 3], else a random unit vector), the nearest ``num_crop`` points form
+    the crop, the rest the partial cloud.
+
+    With ``resample`` (the JAX package's resampled path) each side is
+    resampled to ``sample_points`` by masked FPS starting from its point
+    nearest the viewpoint; requires num_crop >= sample_points and
+    N - num_crop >= sample_points. Without it (``_separate_raw``, the
+    segmentation runner's crop) the points are sorted by their distance to
+    the viewpoint, ties in index order as JAX's stable ``argsort``, and
+    split there: ([B, N - num_crop, 3], [B, num_crop, 3]), no FPS."""
+    if not resample:
+        order = torch.argsort(_viewpoint_dist(xyz, viewpoint, generator), dim=1, stable=True)
+        ordered = torch.gather(xyz, 1, order[..., None].expand(-1, -1, 3))
+        return ordered[:, num_crop:], ordered[:, :num_crop]
     d, crop_valid = _crop_masks(xyz, num_crop, viewpoint, generator)
     return (_resample(xyz, d, ~crop_valid, sample_points),
             _resample(xyz, d, crop_valid, sample_points))

@@ -1,12 +1,14 @@
-"""Classification and completion metrics and meters (counterpart of the
-classification and pretask parts of ``upp_tpu/train/metrics.py``): the
-cross-entropy loss and accuracy (``get_loss_acc``), ``Acc_Metric``,
-``CD_Metric`` (``tools/runner_pretask.py:32-66``), F-Score / CDL1 / CDL2
+"""Classification, segmentation and completion metrics and meters
+(counterpart of ``upp_tpu/train/metrics.py``): the cross-entropy loss and
+accuracy (``get_loss_acc``), the per-point NLL of segmentation and the
+ShapeNetPart mIoU suite (``tools/runner_unify_seg.py:301-368``; numpy, a
+copy of the JAX package's), ``Acc_Metric``, ``CD_Metric``
+(``tools/runner_pretask.py:32-66``), F-Score / CDL1 / CDL2
 (``utils/metrics.py``; EMD is not ported) and ``AverageMeter``."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +25,63 @@ def cross_entropy_loss_acc(logits: torch.Tensor, labels: torch.Tensor):
     loss = -logp.gather(1, labels[:, None]).mean()
     acc = (logits.argmax(-1) == labels).float().mean() * 100.0
     return loss, acc
+
+
+def nll_seg_loss(log_probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of per-point log-probabilities [B, N, C] at the integer
+    part labels [B, N] (``Point_MAE_unify_segment.py:619-625``)."""
+    return -log_probs.gather(-1, target.long()[..., None]).mean()
+
+
+def seg_miou_metrics(preds: np.ndarray, targets: np.ndarray,
+                     cls_labels: np.ndarray,
+                     seg_classes: Dict[str, Sequence[int]]) -> Dict[str, float]:
+    """ShapeNetPart mIoU suite (``tools/runner_unify_seg.py:301-368``):
+    accuracy, class-avg accuracy, class-avg mIoU, instance-avg mIoU.
+
+    Args:
+      preds/targets: [num_samples, N] int part labels (preds already argmaxed
+        *within* each object's category part range, as the reference does).
+      cls_labels: [num_samples] int category index.
+    """
+    cat_names = list(seg_classes.keys())
+    shape_ious: Dict[str, list] = {c: [] for c in cat_names}
+    label_to_cat = {}
+    for cat, parts in seg_classes.items():
+        for p in parts:
+            label_to_cat[p] = cat
+
+    total_correct = 0
+    total_seen = 0
+    seen_per_cat = np.zeros(len(cat_names))
+    correct_per_cat = np.zeros(len(cat_names))
+
+    for i in range(preds.shape[0]):
+        seg_pred, seg_gt = preds[i], targets[i]
+        cat = label_to_cat[int(seg_gt[0])]
+        total_correct += int((seg_pred == seg_gt).sum())
+        total_seen += seg_gt.size
+        ci = cat_names.index(cat)
+        seen_per_cat[ci] += seg_gt.size
+        correct_per_cat[ci] += int((seg_pred == seg_gt).sum())
+
+        part_ious = []
+        for part in seg_classes[cat]:
+            p_and = np.sum((seg_gt == part) & (seg_pred == part))
+            p_or = np.sum((seg_gt == part) | (seg_pred == part))
+            part_ious.append(1.0 if p_or == 0 else p_and / float(p_or))
+        shape_ious[cat].append(np.mean(part_ious))
+
+    all_ious = [iou for vals in shape_ious.values() for iou in vals]
+    cat_ious = {c: np.mean(v) for c, v in shape_ious.items() if v}
+    return {
+        "accuracy": total_correct / max(total_seen, 1),
+        "class_avg_accuracy": float(np.mean(
+            correct_per_cat[seen_per_cat > 0] / seen_per_cat[seen_per_cat > 0])),
+        "class_avg_iou": float(np.mean(list(cat_ious.values()))) if cat_ious else 0.0,
+        "instance_avg_iou": float(np.mean(all_ious)) if all_ious else 0.0,
+        "per_category_iou": {c: float(v) for c, v in cat_ious.items()},
+    }
 
 
 class AccMetric:

@@ -25,7 +25,10 @@
   switch of the trainable set in the middle of an accumulation: a
   parameter it freezes drops its summed gradient and does not step (JAX
   masks it); one it unfreezes sums only the calls after the switch, where
-  JAX's full-tree gradients hold every call of the accumulation.
+  JAX's full-tree gradients hold every call of the accumulation. That
+  difference is accepted: the reference's in-place ``requires_grad`` flip
+  sums as the port does, and every shipped config sets
+  ``step_per_update: 1``.
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ runners share (``init_model`` with ``--ckpts``, ``build_loaders``).
 
 One train step: crop 8192→1024 (+48 lidar, +24 shell points), the config's
 augmentation, ``PointMAEUnify`` in train mode through its three passes,
-cross-entropy, AdamW over the trainable set. The runners log to the logger
-only (no TensorBoard writers).
+cross-entropy, AdamW over the trainable set. The training runners log to
+the logger and to the writers they are given.
 """
 
 from __future__ import annotations
@@ -155,15 +155,23 @@ def validate(eval_step, loader, device: torch.device, epoch: int,
     return AccMetric(acc)
 
 
-def run_net(args, config) -> AccMetric:
+FETCH_LAG = 16    # steps between a train step's dispatch and its metrics' fetch
+
+
+def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     """PEFT classification training on ``args.device`` (CUDA unless the
     caller names another), ``runner_module.run_net``: validation before the
     first epoch, then every ``val_freq`` epochs; ``ckpt-best`` when the
     accuracy improves and ``ckpt-last`` every epoch; ``--resume``; after
     epoch ``--joint_optimization`` (and on a resume past it) the trainable
     set becomes ``JOINT_PEFT_LIST`` on the live optimizer, whose AdamW
-    moments of parameters that stay trainable carry over. Returns the best
-    validation accuracy."""
+    moments of parameters that stay trainable carry over. A step's metrics
+    are fetched ``FETCH_LAG`` steps after its dispatch, as the JAX runner
+    does: the queue stays full and a non-finite loss is logged
+    (``[DIVERGED]``) within that many steps. The writers
+    (``utils.writer.MetricsWriter``) get the per-batch loss, accuracy and
+    learning rate and the validation accuracy. Returns the best validation
+    accuracy."""
     device = resolve_device(getattr(args, "device", None))
     logger = get_logger(getattr(args, "log_name", "upp_torch"))
     train_loader, val_loader = build_loaders(args, config)
@@ -202,22 +210,39 @@ def run_net(args, config) -> AccMetric:
         train_loader.set_epoch(epoch)
         meters = AverageMeter(["loss", "acc"])
         t0 = time.time()
-        pending = [train_step(torch.from_numpy(pts).to(device),
-                              torch.from_numpy(label).to(device))
-                   for pts, label in train_loader]
-        for batch_idx, m in enumerate(pending):   # one fetch per epoch
+        lr_epoch = optimizer.sched(epoch * steps_per_epoch)
+
+        def drain(batch_idx, m):
             loss_v, acc_v = float(m["loss"]), float(m["acc"])
             if not np.isfinite(loss_v):
                 print_log(f"[DIVERGED] non-finite loss at epoch {epoch} step "
                           f"{batch_idx}: {loss_v}", logger=logger)
             meters.update([loss_v, acc_v])
+            if train_writer is not None:
+                n_itr = epoch * steps_per_epoch + batch_idx
+                train_writer.add_scalar("Loss/Batch/Loss", loss_v, n_itr)
+                train_writer.add_scalar("Loss/Batch/TrainAcc", acc_v, n_itr)
+                train_writer.add_scalar("Loss/Batch/LR", lr_epoch, n_itr)
+
+        pending = []
+        for batch_idx, (pts, label) in enumerate(train_loader):
+            pending.append((batch_idx, train_step(torch.from_numpy(pts).to(device),
+                                                  torch.from_numpy(label).to(device))))
+            if len(pending) > FETCH_LAG:
+                drain(*pending.pop(0))
+        for item in pending:
+            drain(*item)
         if epoch == joint_epoch:
             joint_switch()
         print_log("[Training] EPOCH: %d EpochTime = %.3f (s) Losses = %s" %
                   (epoch, time.time() - t0, ["%.4f" % v for v in meters.avg()]),
                   logger=logger)
+        if train_writer is not None:
+            train_writer.add_scalar("Loss/Epoch/Loss", meters.avg(0), epoch)
         if epoch % val_freq == 0 and epoch != 0:
             metrics = validate(eval_step, val_loader, device, epoch, logger=logger)
+            if val_writer is not None:
+                val_writer.add_scalar("Metric/ACC", metrics.acc, epoch)
             if metrics.better_than(best):
                 best = metrics
                 ckpt.save_checkpoint(model, optimizer, epoch, "ckpt-best",
@@ -228,11 +253,11 @@ def run_net(args, config) -> AccMetric:
     return best
 
 
-def finetune_run_net(args, config) -> AccMetric:
+def finetune_run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     """Full fine-tuning (``tools/runner_finetune.py``): the same loop with
     every parameter trainable."""
     args.peft_model = False
-    return run_net(args, config)
+    return run_net(args, config, train_writer, val_writer)
 
 
 def test_vote(model, loader, config, args, device: torch.device, times: int = 10,

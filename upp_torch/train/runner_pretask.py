@@ -216,10 +216,12 @@ def _print_metrics_table(category_metrics: dict, logger=None) -> None:
               logger=logger)
 
 
-def run_net(args, config) -> CDMetric:
+def run_net(args, config, train_writer=None, val_writer=None) -> CDMetric:
     """Train on ``args.device`` (CUDA unless the caller names another):
     epochs 0..max_epoch, validate every ``val_freq`` epochs, write
-    ``ckpt-best`` and ``ckpt-last``; the stage-2 freeze after epoch 20."""
+    ``ckpt-best`` and ``ckpt-last``; the stage-2 freeze after epoch 20. The
+    writers get the epoch's mean loss terms and learning rate and the
+    validation metrics."""
     device = resolve_device(getattr(args, "device", None))
     logger = get_logger(getattr(args, "log_name", "upp_torch"))
     train_loader, val_loader = build_loaders(args, config)
@@ -256,11 +258,19 @@ def run_net(args, config) -> CDMetric:
         print_log("[Training] EPOCH: %d EpochTime = %.3f (s) Losses = %s" %
                   (epoch, time.time() - t0, ["%.4f" % v for v in meters.avg()]),
                   logger=logger)
+        if train_writer is not None:
+            for name, v in zip(meters.items, meters.avg()):
+                train_writer.add_scalar(f"Loss/Epoch/{name}", v, epoch)
+            train_writer.add_scalar("Loss/Epoch/LR",
+                                    optimizer.sched(epoch * steps_per_epoch), epoch)
         if epoch == STAGE2_EPOCH:
             print_log("[stage 2] freezing rectify set", logger=logger)
             set_trainable(model, PRETASK_STAGE2_LIST)
         if epoch % max(int(getattr(args, "val_freq", 1)), 1) == 0:
             metrics = validate(eval_step, val_loader, device, epoch, logger=logger)
+            if val_writer is not None:
+                for k, v in metrics.state_dict().items():
+                    val_writer.add_scalar(f"Metric/{k}", float(v), epoch)
             if metrics.better_than(best):
                 best = metrics
                 ckpt.save_checkpoint(model, optimizer, epoch, "ckpt-best",

@@ -13,7 +13,13 @@ its import shim):
   encoder.first_conv.{0,1,3}           → core/encoder/{first_conv0,first_bn,first_conv1}
   <head>.{0,2} (two-layer heads)       → core/<head>/{lin0,lin1}
   cls_head_finetune.{0,1,4,5,8}        → cls_head_finetune/{lin0,bn0,lin1,bn1,lin2}
+  label_conv.{0,1,3,4}                 → label_conv/{conv0,bn0,conv1,bn1}
+  propagation_0.mlp_{convs,bns}.{i}    → propagation_0/{conv,bn}{i}
+  seg_head.{0,1,4,5,7}                 → seg_head/{conv0,bn0,conv1,bn1,conv2}
   ...
+
+``core/`` is left out for a model whose JAX tree has none
+(``PointTransformer_seg``).
 
 Leaves: a Linear/Conv ``weight`` is the transposed ``kernel``, a norm's
 ``weight`` its ``scale``, ``running_mean``/``running_var`` the batch_stats
@@ -47,11 +53,24 @@ _RENAMES = [
     (r"^cls_head_finetune\.4$", "cls_head_finetune/lin1"),
     (r"^cls_head_finetune\.5$", "cls_head_finetune/bn1"),
     (r"^cls_head_finetune\.8$", "cls_head_finetune/lin2"),
+    (r"^label_conv\.0$", "label_conv/conv0"),
+    (r"^label_conv\.1$", "label_conv/bn0"),
+    (r"^label_conv\.3$", "label_conv/conv1"),
+    (r"^label_conv\.4$", "label_conv/bn1"),
+    (r"^propagation_0\.mlp_convs\.(\d+)$", r"propagation_0/conv\1"),
+    (r"^propagation_0\.mlp_bns\.(\d+)$", r"propagation_0/bn\1"),
+    (r"^seg_head\.0$", "seg_head/conv0"),
+    (r"^seg_head\.1$", "seg_head/bn0"),
+    (r"^seg_head\.4$", "seg_head/conv1"),
+    (r"^seg_head\.5$", "seg_head/bn1"),
+    (r"^seg_head\.7$", "seg_head/conv2"),
 ]
-_TOP_LEVEL = ("cls_token", "cls_pos", "cls_head_finetune")   # outside core/
+# outside core/ (the unify models' shared submodules live under it; the
+# PointTransformer_seg tree has no core/ at all)
+_TOP_LEVEL = ("cls_token", "cls_pos", "cls_head_finetune", "label_conv",
+              "propagation_0", "seg_head")
 _BLOCK = re.compile(r"^(blocks\.blocks|MAE_decoder\.blocks)\.(\d+)\.(.+)$")
-_STACKS = {"blocks.blocks": "core/blocks",
-           "MAE_decoder.blocks": "core/MAE_decoder/blocks"}
+_STACKS = {"blocks.blocks": "blocks", "MAE_decoder.blocks": "MAE_decoder/blocks"}
 _NORMS = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
 
 
@@ -77,6 +96,7 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
     configuration. Raises KeyError on a tensor with no JAX counterpart."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}) or {})
+    core = "core/" if "core" in variables["params"] else ""
     norms = {name for name, m in model.named_modules() if isinstance(m, _NORMS)}
     out = {}
     for key, ref in model.state_dict().items():
@@ -88,7 +108,7 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
         m = _BLOCK.match(key)
         if m:
             stack, row, rest = m.group(1), int(m.group(2)), m.group(3)
-            base = _STACKS[stack]
+            base = core + _STACKS[stack]
             mod_in_block, _, leaf = rest.rpartition(".")
             if not mod_in_block:                         # {path}_prompts
                 path, coll = f"{base}/{leaf}", params
@@ -97,7 +117,7 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
                 path = f"{base}/{name}"
                 coll = stats if leaf.startswith("running_") else params
         elif not mod:                                    # bare parameters
-            path = leaf if leaf in _TOP_LEVEL else f"core/{leaf}"
+            path = leaf if leaf in _TOP_LEVEL else f"{core}{leaf}"
             coll = params
         else:
             fpath = mod
@@ -107,7 +127,7 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
                     break
             fpath = fpath.replace(".", "/")
             if fpath.split("/")[0] not in _TOP_LEVEL:
-                fpath = f"core/{fpath}"
+                fpath = f"{core}{fpath}"
             path = f"{fpath}/{_leaf(leaf, mod in norms)}"
             coll = stats if leaf.startswith("running_") else params
         if path not in coll:
