@@ -90,13 +90,48 @@ Phases, each fatal on failure:
  18. seg CLI: ``upp_torch.main --peft_model`` trains the seg twin (60
      training clouds, batch 30) for epochs 0 and 1, then ``--test
      --peft_model --ckpts <its ckpt-best.pth>``: the mIoU lines of every
-     validation and the test, both checkpoints.
+     validation and the test, both checkpoints;
+ 19. pretrain train: 3 steps of ``runner_pretrain.make_pretrain_step`` on
+     ``cfgs/pretrain_synthetic.yaml`` (the model of ``cfgs/pretrain.yaml``:
+     384-dim, 12 + 4 blocks, 64 groups of 32, mask ratio 0.6, CD-L2) at
+     batch 128 (its ``total_bs``) on 8192-point synthetic clouds: the launch
+     counts of one step (FPS 8192→1024 and 1024→64, kNN k=32, one Chamfer
+     call over 128 x 38 rebuilt groups of 32), finite loss, every parameter
+     the loss reaches changed (the first that did not is named), ms per
+     step (mean of 10 after a warm-up), clouds/s, peak memory and a profile
+     over 3 steps;
+ 20. probe features: ``Point_MAE``'s ``eval_features`` at batch 128 on the
+     card against the same weights and points on the CPU (rtol 1e-3, atol
+     2e-3), its launch counts and time (the LinearSVC fit needs
+     scikit-learn, which the card's machine lacks: CPU tests only);
+ 21. pretrain card vs CPU at batch 4: one step from the same weights, group
+     split and augmentation draws, drop-path off: loss within rtol 1e-3 /
+     atol 2e-3, the gradients' global norm within rtol 1e-2;
+ 22. fine-tune cls: ``PointTransformer`` on the twin of
+     ``cfgs/finetune_modelnet_cls.yaml`` (each split ``Synthetic``, 8192
+     points) at batch 40: crop, noise, scale-translate, clip 10, every
+     parameter trainable; as phase 19, then its eval step at batch 40;
+ 23. fine-tune card vs CPU at batch 8: eval logits within rtol 1e-3 / atol
+     2e-3 with equal argmax; one train step from the same weights and draws
+     (drawn on the CPU), dropout and drop-path off, no clip: loss within
+     rtol 1e-3 / atol 2e-3, the gradients' norm within rtol 1e-2;
+ 24. the two-stage CLI: ``upp_torch.main`` pretrains a 48-cloud twin of
+     ``cfgs/pretrain_synthetic.yaml`` (batch 24, epochs 0-1, no probe
+     split), then ``--finetune_model --ckpts <its ckpt-last.pth>`` trains
+     the fine-tune twin for epochs 0-1, then ``--test --finetune_model
+     --ckpts <its ckpt-best.pth>`` (ckpt-last when no validation beat 0 %);
+     the load reports as missing only the cls tokens and head, as
+     unexpected only the decoder side.
 Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
-clouds and on tie-heavy grid clouds of 2048 points. Launch counts are reset
-right before each path run (4, 5, 7, 8, 10, 11, 14, 15, 16) and read right
-after; the kernel-vs-plain comparisons do not count. Before the last line
-it prints the ``kernels`` JSON line (FPS and kNN launches of one cls train
-step and of one seg PEFT train step, Chamfer's of one pretask train step;
+clouds and on tie-heavy grid clouds of 2048 points, and FPS, kNN and
+Chamfer at the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32
+points) and the fine-tune shapes (batch 40), on synthetic and tie-heavy
+grid clouds. Launch counts are reset right before each path run (4, 5, 7,
+8, 10, 11, 14, 15, 16, 19, 20, 22) and read right after; the
+kernel-vs-plain comparisons do not count. Before the last line it prints
+the ``kernels`` JSON line (FPS and kNN launches of one cls train step, of
+one seg PEFT train step, of one pretrain train step and of one fine-tune
+cls train step; Chamfer's of one pretask and of one pretrain train step;
 each entry names its ``path``) and the card's name and power limit; the
 last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
@@ -131,6 +166,13 @@ B_SEG = 30              # total_bs of the published seg configs
 B_SEG_CPU = 4           # seg card-vs-CPU comparison batch
 N_SEG = 2048            # N_POINTS of cfgs/dataset_configs/ShapeNetPart.yaml
 SEG_CLI_CLOUDS = 60     # training split of the seg CLI phase (val and test: 30)
+PRETRAIN_CFG = "cfgs/pretrain_synthetic.yaml"   # the model of cfgs/pretrain.yaml
+FT_CFG = "cfgs/finetune_modelnet_cls.yaml"
+B_PRETRAIN = 128        # total_bs of cfgs/pretrain.yaml
+B_PRETRAIN_CPU = 4      # pretrain card-vs-CPU comparison batch
+N_MASKED = 38           # int(0.6 * 64) masked groups a cloud
+B_REBUILD = B_PRETRAIN * N_MASKED    # the pretrain step's Chamfer clouds of 32 points
+B_FT = 40               # total_bs of cfgs/finetune_modelnet_cls.yaml
 N_POINTS = 8192
 NPOINTS = 1024
 SEED = 0
@@ -205,6 +247,12 @@ SEG_FT_CALLS = Counter({("fps", 2048, 128, False): 1, ("knn", 128, 2048, 32, Tru
                         ("knn", 2048, 128, 5, False): 1})    # PointTransformer_seg
 SEG_EVAL_CALLS = Counter({("fps", 2048, 128, False): 1, ("knn", 128, 2048, 32, True): 1,
                           ("knn", 2048, 128, 3, False): 1})  # downstream pass alone
+PRETRAIN_CALLS = Counter({("fps", 8192, 1024, False): 1,      # FPS to npoints
+                          ("fps", 1024, 64, False): 1, ("knn", 64, 1024, 32, True): 1})
+PRETRAIN_CHAMFER = Counter({("chamfer", 32, 32, False): 1})   # rebuild vs masked groups
+FT_CALLS = Counter({("fps", 8192, 1024, True): 1,             # viewpoint crop
+                    ("fps", 1096, 64, False): 1, ("knn", 64, 1096, 32, True): 1})
+FT_EVAL_CALLS = PRETRAIN_CALLS    # FPS to npoints, then the group (as the probe)
 KNN_GRAD_CALLS = ((("knn", 32, 32, 6, False), B_PRETASK), (("knn", 32, 1024, 16, True), B_PRETASK),
                   (("knn", 64, 32, 8, False), B), (("knn", 64, 1024, 32, True), B),
                   (("knn", 32, 32, 6, False), B), (("knn", 32, 972, 16, True), B))
@@ -348,14 +396,22 @@ def seg_shapes():
     return sorted(set(SEG_TRAIN_CALLS) | set(SEG_FT_CALLS) | set(SEG_EVAL_CALLS))
 
 
+def baseline_shapes():
+    """(call, batch) of every kernel shape of the pretrain (batch 128; its
+    Chamfer over 4864 clouds) and fine-tune cls (batch 40) paths."""
+    return ([(c, B_PRETRAIN) for c in sorted(PRETRAIN_CALLS)]
+            + [(c, B_REBUILD) for c in PRETRAIN_CHAMFER]
+            + [(c, B_FT) for c in sorted(set(FT_CALLS) | set(FT_EVAL_CALLS))])
+
+
 def kernel_shapes():
     """(call, batch) of every kernel shape the paths run: the classification
     shapes at batch 120, the pretask ones it does not share at batch 64, the
-    segmentation ones at batch 30."""
+    segmentation ones at batch 30, the pretrain and fine-tune ones."""
     cls = set(CLEAN_CALLS) | set(ROBUST_CALLS)
     pretask = (set(PRETASK_TRAIN_CALLS) | set(PRETASK_EVAL_CALLS)) - cls
     return ([(c, B) for c in sorted(cls)] + [(c, B_PRETASK) for c in sorted(pretask)]
-            + [(c, B_SEG) for c in seg_shapes()])
+            + [(c, B_SEG) for c in seg_shapes()] + baseline_shapes())
 
 
 def _check_fps(call, clouds, gen):
@@ -466,14 +522,22 @@ def _check(call, clouds, gen):
     return _check_chamfer(call, clouds, gen)
 
 
+def rebuild_clouds(clouds):
+    """[4864, 32, 3]: the first 38 x 32 points of each of 128 clouds, cut
+    into clouds of 32 (the pretrain Chamfer's shape)."""
+    return clouds[:B_PRETRAIN, :B_REBUILD // B_PRETRAIN * 32].reshape(B_REBUILD, 32, 3)
+
+
 def phase_kernels(clouds, seg_clouds, card):
     """Kernel vs plain on the card at every path shape (the seg shapes on
-    the seg clouds). Returns per-shape rows."""
+    the seg clouds, the pretrain Chamfer on ``rebuild_clouds``). Returns
+    per-shape rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sources = {B_SEG: seg_clouds, B_REBUILD: rebuild_clouds(clouds)}
     rows = []
     for call, bsz in kernel_shapes():
-        src = seg_clouds if bsz == B_SEG else clouds
-        err, ms, plain_ms = _check(call, src[:bsz], gen)
+        src = sources.get(bsz, clouds)
+        err, ms, plain_ms = _check(call, src[:bsz].contiguous(), gen)
         nbytes, ops = bound_parts(call, bsz)
         rows.append({"call": list(call), "batch": bsz, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bytes": nbytes, "ops": ops})
@@ -493,6 +557,8 @@ def phase_kernel_ties_and_edges(card):
     cases = [("ties", call, tie_clouds(B_PRETASK if call[0] == "chamfer" else B, 8192, gen))
              for call in TIE_CALLS]
     cases += [("seg ties", call, tie_clouds(B_SEG, N_SEG, gen)) for call in seg_shapes()]
+    cases += [("baseline ties", call, tie_clouds(bsz, 32 if bsz == B_REBUILD else N_POINTS, gen))
+              for call, bsz in baseline_shapes()]
     for call in EDGE_CALLS:
         n = max(call[1:3]) if call[0] in ("knn", "chamfer") else call[1]
         cases.append(("edge", call, torch.randn((B_EDGE, n, 3), generator=gen,
@@ -954,13 +1020,15 @@ def phase_cls_train(clouds, labels, config, card, device, backward_ms):
     return counts
 
 
-def phase_cls_card_vs_cpu(clouds, labels, config, card, device):
-    """One cls train step at batch 8 in each stage on the card and on the
-    CPU, from the same weights and draws (drawn on the CPU), dropout and
-    drop-path off, without the gradient clip (the norm compared is the
-    gradients' own)."""
-    from upp_torch.train.pipeline import CorruptDraws
+def phase_cls_card_vs_cpu(clouds, labels, config, card, device, stages=None, tag="cls"):
+    """One cls train step at batch 8 in each of ``stages``, (name, trainable
+    list or None for every parameter), the PEFT and joint stages unless
+    given, on the card and on the CPU, from the same weights and draws
+    (drawn on the CPU), dropout and drop-path off, without the gradient clip
+    (the norm compared is the gradients' own)."""
     from upp_torch.train.runner_cls import JOINT_PEFT_LIST, PEFT_LIST
+    stages = stages or (("PEFT", PEFT_LIST), ("joint", JOINT_PEFT_LIST))
+    from upp_torch.train.pipeline import CorruptDraws
     config = copy.deepcopy(config)
     config.grad_norm_clip = None
     bsz = B_CPU
@@ -973,7 +1041,7 @@ def phase_cls_card_vs_cpu(clouds, labels, config, card, device):
         shell_normal=torch.randn((bsz, 24, 3), generator=gen),
         aug_scale=2 / 3 + (3 / 2 - 2 / 3) * torch.rand((bsz, 1, 3), generator=gen),
         aug_shift=0.2 * (2 * torch.rand((bsz, 1, 3), generator=gen) - 1))
-    for stage, peft in (("PEFT", PEFT_LIST), ("joint", JOINT_PEFT_LIST)):
+    for stage, peft in stages:
         results = []
         for dev in (device, torch.device("cpu")):
             model, _, train_step = cls_train_setup(config, dev, peft)
@@ -986,10 +1054,10 @@ def phase_cls_card_vs_cpu(clouds, labels, config, card, device):
             results.append((float(out["loss"]), float(out["acc"]), float(gnorm)))
         (card_l, card_a, card_g), (cpu_l, cpu_a, cpu_g) = results
         if not np.isclose(card_l, cpu_l, rtol=1e-3, atol=2e-3):
-            raise AssertionError(f"cls card vs CPU ({stage}): loss {card_l} vs {cpu_l}")
+            raise AssertionError(f"{tag} card vs CPU ({stage}): loss {card_l} vs {cpu_l}")
         if not np.isclose(card_g, cpu_g, rtol=1e-2, atol=0.0):
-            raise AssertionError(f"cls card vs CPU ({stage}): grad norm {card_g} vs {cpu_g}")
-        print(f"[cls card vs cpu] {stage}, B={bsz}: loss card {card_l:.6f}, cpu {cpu_l:.6f} "
+            raise AssertionError(f"{tag} card vs CPU ({stage}): grad norm {card_g} vs {cpu_g}")
+        print(f"[{tag} card vs cpu] {stage}, B={bsz}: loss card {card_l:.6f}, cpu {cpu_l:.6f} "
               f"(rtol 1e-3, atol 2e-3), acc {card_a:.1f} / {cpu_a:.1f}; trainable grad norm "
               f"card {card_g:.6g}, cpu {cpu_g:.6g} (rtol 1e-2) ({card})", flush=True)
 
@@ -1090,29 +1158,7 @@ def phase_seg_train(name, batch, config, card, device, unify, want):
     (mean of 10 after a warm-up), peak memory and a profile over 3 steps.
     Returns (launch counts of one step, the eval step)."""
     model, train_step, eval_step = seg_setup(config, device, unify)
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with Recorder() as rec:
-        out = train_step(*batch)
-        torch.cuda.synchronize()
-    counts = check_calls(name, rec, want)
-    history = [out] + [train_step(*batch) for _ in range(2)]
-    for i, m in enumerate(history):
-        vals = {k: float(v) for k, v in m.items()}
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"{name} step {i}: not finite: {vals}")
-        print(f"[{name}] step {i}: loss {vals['loss']:.4f}, acc {vals['acc']:.2f}", flush=True)
-    used = {n for n, p in model.named_parameters() if p.grad is not None}
-    n_moved, n_fixed = _check_moves(name, model, before, used)
-    step_ms = cuda_ms(lambda: train_step(*batch), reps=10, warmup=1)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[{name}] launches of one step {counts}; {n_moved} trainable tensors changed, "
-          f"{n_fixed} others bit-unchanged; {step_ms:.2f} ms/step, "
-          f"{B_SEG / step_ms * 1e3:.1f} clouds/s, peak {peak_gib:.2f} GiB (B={B_SEG}; {card})",
-          flush=True)
-    profile_steps(lambda: train_step(*batch), name, step_ms, card, bsz=B_SEG)
-    return counts, eval_step
+    return phase_train(name, train_step, model, batch, card, want, B_SEG), eval_step
 
 
 def phase_seg_eval(eval_step, batch, card):
@@ -1238,6 +1284,235 @@ def phase_seg_cli(card):
           flush=True)
 
 
+def pretrain_setup(config, device):
+    """(model, train step) of the pretrain path from the seeded weights."""
+    from upp_torch.train.optim import build_optimizer
+    from upp_torch.train.runner_cls import init_model
+    from upp_torch.train.runner_pretrain import make_pretrain_step
+    args = types.SimpleNamespace(seed=SEED)
+    model = init_model(args, config, device)
+    optimizer = build_optimizer(config, model, steps_per_epoch=1)
+    return model, make_pretrain_step(model, optimizer, config, args)
+
+
+def phase_train(name, step, model, batch, card, want, bsz):
+    """3 train steps: the launch counts of one (``want``), finite metrics,
+    every tensor with a gradient changed and every other one bit-unchanged;
+    ms per step (mean of 10 after a warm-up), clouds/s, peak memory and a
+    profile over 3 steps. Returns the launch counts."""
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with Recorder() as rec:
+        out = step(*batch)
+        torch.cuda.synchronize()
+    counts = check_calls(name, rec, want)
+    history = [out] + [step(*batch) for _ in range(2)]
+    for i, m in enumerate(history):
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{name} step {i}: not finite: {vals}")
+        print(f"[{name}] step {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()),
+              flush=True)
+    used = {n for n, p in model.named_parameters() if p.grad is not None}
+    n_moved, n_fixed = _check_moves(name, model, before, used)
+    step_ms = cuda_ms(lambda: step(*batch), reps=10, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{name}] launches of one step {counts}; {n_moved} tensors with a gradient "
+          f"changed, {n_fixed} others bit-unchanged; {step_ms:.2f} ms/step, "
+          f"{bsz / step_ms * 1e3:.1f} clouds/s, peak {peak_gib:.2f} GiB (B={bsz}; {card})",
+          flush=True)
+    profile_steps(lambda: step(*batch), name, step_ms, card, bsz=bsz)
+    return counts
+
+
+def phase_probe_features(model, clouds, card, device):
+    """``eval_features`` of the pretrained model at batch 128 on the card
+    and, from the same weights and points, on the CPU; launch counts and
+    time of FPS to 1024 plus the features."""
+    from upp_torch.ops.fps import fps
+    pts = clouds[:B_PRETRAIN]
+
+    @torch.inference_mode()
+    def features(pts):
+        model.eval()
+        points, _ = fps(pts, NPOINTS)
+        return points, model(points, eval_features=True)
+
+    reset_counts()
+    with Recorder() as rec:
+        points, feats = features(pts)
+        torch.cuda.synchronize()
+    counts = check_calls("probe features", rec, PRETRAIN_CALLS)
+    with torch.inference_mode():
+        want = copy.deepcopy(model).cpu()(points.cpu(), eval_features=True)
+    diff = (feats.cpu() - want).abs().max().item()
+    if feats.shape != want.shape or not torch.allclose(feats.cpu(), want, rtol=1e-3, atol=2e-3):
+        raise AssertionError(f"probe features: card vs CPU differ by {diff}")
+    ms = cuda_ms(lambda: features(pts), reps=5, warmup=1)
+    print(f"[probe features] launches {counts}; features {tuple(feats.shape)}, card vs CPU max "
+          f"|diff| {diff:.3g} (rtol 1e-3, atol 2e-3); {ms:.2f} ms/batch, "
+          f"{B_PRETRAIN / ms * 1e3:.1f} clouds/s (B={B_PRETRAIN}; {card})", flush=True)
+
+
+def phase_pretrain_card_vs_cpu(clouds, config, card, device):
+    """One pretrain step at batch 4 on the card and on the CPU from the
+    same weights, group split and augmentation draws (drawn on the CPU),
+    drop-path off."""
+    from upp_torch.train.pipeline import AugmentDraws
+    bsz = B_PRETRAIN_CPU
+    gen = torch.Generator().manual_seed(SEED + 7)
+    perm = torch.argsort(torch.rand((bsz, 64), generator=gen), dim=1)
+    masks = (perm[:, :64 - N_MASKED], perm[:, 64 - N_MASKED:])
+    draws = AugmentDraws(
+        aug_scale=2 / 3 + (3 / 2 - 2 / 3) * torch.rand((bsz, 1, 3), generator=gen),
+        aug_shift=0.2 * (2 * torch.rand((bsz, 1, 3), generator=gen) - 1))
+    results = []
+    for dev in (device, torch.device("cpu")):
+        model, step = pretrain_setup(config, dev)
+        no_dropout(model)
+        out = step(clouds[:bsz].to(dev), AugmentDraws(**{k: v.to(dev) for k, v in
+                                                        vars(draws).items() if v is not None}),
+                   tuple(m.to(dev) for m in masks))
+        gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()
+                               if p.grad is not None))
+        results.append((float(out["loss"]), float(gnorm)))
+    (card_l, card_g), (cpu_l, cpu_g) = results
+    if not np.isclose(card_l, cpu_l, rtol=1e-3, atol=2e-3):
+        raise AssertionError(f"pretrain card vs CPU: loss {card_l} vs {cpu_l}")
+    if not np.isclose(card_g, cpu_g, rtol=1e-2, atol=0.0):
+        raise AssertionError(f"pretrain card vs CPU: grad norm {card_g} vs {cpu_g}")
+    print(f"[pretrain card vs cpu] B={bsz}: loss card {card_l:.6f}, cpu {cpu_l:.6f} (rtol "
+          f"1e-3, atol 2e-3); grad norm card {card_g:.6g}, cpu {cpu_g:.6g} (rtol 1e-2) ({card})",
+          flush=True)
+
+
+def finetune_config():
+    """The hermetic twin of ``cfgs/finetune_modelnet_cls.yaml``: each split
+    ``Synthetic`` with 8192 points (the model keeps its 40 classes)."""
+    import yaml
+    cfg = yaml.safe_load(open(FT_CFG))
+    for split in ("train", "val", "test"):
+        cfg["dataset"][split]["_base_"] = {"NAME": "Synthetic", "N_POINTS": N_POINTS,
+                                           "NUM_CATEGORY": 6, "SIZE": CLI_CLOUDS}
+    return cfg
+
+
+def phase_finetune(clouds, labels, config, card, device):
+    """Fine-tune cls train at batch 40 (``phase_train``), then its eval step
+    at batch 40. Returns the launch counts of one train step."""
+    from upp_torch.train.runner_cls import make_eval_step
+    model, _, step = cls_train_setup(config, device, None)
+    counts = phase_train("finetune cls train", step, model, (clouds[:B_FT], labels[:B_FT]),
+                         card, FT_CALLS, B_FT)
+    eval_step = make_eval_step(model, config, types.SimpleNamespace(normalize=False))
+    reset_counts()
+    with Recorder() as rec:
+        preds = eval_step(clouds[:B_FT])
+        torch.cuda.synchronize()
+    eval_counts = check_calls("finetune cls eval", rec, FT_EVAL_CALLS)
+    if preds.shape != (B_FT,) or not ((preds >= 0) & (preds < config.model.cls_dim)).all():
+        raise AssertionError(f"finetune cls eval: bad predictions {preds}")
+    eval_ms = cuda_ms(lambda: eval_step(clouds[:B_FT]), reps=10, warmup=1)
+    print(f"[finetune cls eval] launches {eval_counts}; {eval_ms:.2f} ms/batch, "
+          f"{B_FT / eval_ms * 1e3:.1f} clouds/s (B={B_FT}; {card})", flush=True)
+    return counts
+
+
+def phase_finetune_logits(clouds, config, card, device):
+    """``PointTransformer``'s eval logits at batch 8 on the card and on the
+    CPU, from the same weights and points."""
+    from upp_torch.ops.fps import fps
+    from upp_torch.train.runner_cls import init_model
+    args = types.SimpleNamespace(seed=SEED)
+    with torch.inference_mode():
+        points, _ = fps(clouds[:B_CPU], NPOINTS)
+        card_l = init_model(args, config, device)(points).cpu()
+        cpu_l = init_model(args, config, torch.device("cpu"))(points.cpu())
+    diff = (card_l - cpu_l).abs().max().item()
+    if not torch.allclose(card_l, cpu_l, rtol=1e-3, atol=2e-3) or not torch.equal(
+            card_l.argmax(-1), cpu_l.argmax(-1)):
+        raise AssertionError(f"finetune card vs CPU: logits differ by {diff}")
+    print(f"[finetune card vs cpu] B={B_CPU}: eval max |logit diff| {diff:.3g} (rtol 1e-3, "
+          f"atol 2e-3), argmax equal ({card})", flush=True)
+
+
+def phase_two_stage_cli(card):
+    """``upp_torch.main`` pretrains a 48-cloud twin of
+    ``cfgs/pretrain_synthetic.yaml`` (batch 24, epochs 0-1), then
+    fine-tunes ``PointTransformer`` from its ``ckpt-last.pth`` (epochs 0-1)
+    and tests the fine-tune's ``ckpt-best.pth`` (its ``ckpt-last.pth`` when
+    no validation beat 0 %). The fine-tune's load must
+    miss only the cls tokens and head and find unexpected only the decoder
+    side."""
+    import glob
+    import yaml
+    from upp_torch.main import main as upp_main
+    from upp_torch.train import runner_cls
+    pre = yaml.safe_load(open(PRETRAIN_CFG))
+    for split in ("train", "val", "test"):
+        pre["dataset"][split]["_base_"] = {"NAME": "Synthetic", "N_POINTS": N_POINTS,
+                                           "NUM_CATEGORY": 6, "SIZE": CLI_CLOUDS}
+        pre["dataset"][split]["others"].pop("SIZE", None)
+    pre.update(total_bs=CLI_BS, max_epoch=1)
+    ft = finetune_config()
+    ft.update(total_bs=CLI_BS, max_epoch=1)
+    os.makedirs(CLI_DIR, exist_ok=True)
+    paths = {}
+    for name, cfg in (("pretrain_cli", pre), ("finetune_cli_train", ft),
+                      ("finetune_cli_test", ft)):
+        paths[name] = os.path.join(CLI_DIR, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    t0 = time.time()
+    upp_main(["--config", paths["pretrain_cli"], "--exp_name", "chip_smoke"])
+    pre_s = time.time() - t0
+    last = sorted(glob.glob("experiments/pretrain_cli/plain-network/*chip_smoke/*/"
+                            "ckpt-last.pth"))[-1]
+    log = open(os.path.join(os.path.dirname(last), "pretrain_cli.log")).read()
+    epochs = re.findall(r"EPOCH: (\d+) EpochTime = ([\d.]+) \(s\) LossX1000 = ([\d.]+)", log)
+    if len(epochs) != 2 or not all(0.0 < float(v) < 1e6 for _, _, v in epochs):
+        raise AssertionError(f"pretrain CLI: epochs {epochs}, log tail {log[-2000:]}")
+
+    reports = []
+    load = runner_cls.load_weights
+    runner_cls.load_weights = lambda *a, **kw: reports.append(load(*a, **kw)) or reports[-1]
+    try:
+        t0 = time.time()
+        best = upp_main(["--finetune_model", "--config", paths["finetune_cli_train"],
+                         "--ckpts", last, "--exp_name", "chip_smoke"])
+        ft_s = time.time() - t0
+    finally:
+        runner_cls.load_weights = load
+    ((missing, unexpected),) = reports
+    heads = ({k.split(".")[0] for k in missing}, {k.split(".")[0] for k in unexpected})
+    if heads != ({"cls_token", "cls_pos", "cls_head_finetune"},
+                 {"MAE_decoder", "decoder_pos_embed", "increase_dim", "mask_token"}):
+        raise AssertionError(f"fine-tune --ckpts: missing {missing}, unexpected {unexpected}")
+    run = os.path.dirname(sorted(glob.glob("experiments/finetune_cli_train/ckpt-last/"
+                                           "*chip_smoke/*/ckpt-last.pth"))[-1])
+    ft_log = open(os.path.join(run, "finetune_cli_train.log")).read()
+    ft_epochs = re.findall(r"EPOCH: (\d+) EpochTime = ([\d.]+)", ft_log)
+    if len(ft_epochs) != 2 or "(100.00 %)" not in ft_log:
+        raise AssertionError(f"fine-tune CLI: epochs {ft_epochs}, log tail {ft_log[-2000:]}")
+    # ckpt-best is written only when a validation accuracy rises above 0,
+    # which 4 steps of a 40-class head may not reach
+    tested = "ckpt-best" if os.path.exists(os.path.join(run, "ckpt-best.pth")) else "ckpt-last"
+    t0 = time.time()
+    acc = upp_main(["--test", "--finetune_model", "--config", paths["finetune_cli_test"],
+                    "--ckpts", os.path.join(run, f"{tested}.pth"), "--exp_name", "chip_smoke"])
+    test_s = time.time() - t0
+    test_log = sorted(glob.glob(f"experiments/finetune_cli_test/{tested}/*chip_smoke/*/"
+                                "finetune_cli_test.log"))[-1]
+    if "missing_keys" in open(test_log).read() or not 0.0 <= acc <= 100.0:
+        raise AssertionError(f"fine-tune CLI test: acc {acc}")
+    print(f"[two-stage cli] pretrain {CLI_CLOUDS} clouds, batch {CLI_BS}: epochs (epoch, s, "
+          f"loss x1000) {epochs}, {pre_s:.1f} s; fine-tune --ckpts ckpt-last.pth: "
+          f"{len(missing)} missing (cls tokens and head), {len(unexpected)} unexpected (decoder "
+          f"side), epochs (epoch, s) {ft_epochs}, best acc {best.acc:.4f}, {ft_s:.1f} s; --test "
+          f"--ckpts {tested}.pth: acc {acc:.4f}, {test_s:.1f} s ({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1247,7 +1522,7 @@ def main() -> int:
     from upp_torch.ops import cuda_build
     from upp_torch.train.pipeline import corrupt_batch
     from upp_torch.train.runner_cls import init_model, make_eval_step
-    from upp_torch.utils.config import cfg_from_yaml_file
+    from upp_torch.utils.config import ConfigDict, cfg_from_yaml_file
 
     device = resolve_device("cuda")
     card = card_line()
@@ -1264,14 +1539,15 @@ def main() -> int:
         for kernel in lines.split("; "):
             print(f"[ptxas] {name}.cu {kernel}", flush=True)
 
-    clouds_np, labels_np = synthetic_clouds(B)
-    clouds = torch.from_numpy(clouds_np).to(device)
-    labels = torch.from_numpy(labels_np).to(device)
+    clouds_np, labels_np = synthetic_clouds(B_PRETRAIN)
+    all_clouds = torch.from_numpy(clouds_np).to(device)
+    clouds = all_clouds[:B]
+    labels = torch.from_numpy(labels_np).to(device)[:B]
     seg = seg_batch(B_SEG, device)
 
     # 2. kernels vs plain, ties and edges, host cost; 3. kNN backward
     with torch.inference_mode():
-        rows = phase_kernels(clouds, seg[0], card)
+        rows = phase_kernels(all_clouds, seg[0], card)
         phase_kernel_ties_and_edges(card)
         phase_host_cost(clouds, card)
         phase_chamfer_yardstick(clouds, card)
@@ -1350,7 +1626,6 @@ def main() -> int:
 
     # 14. seg PEFT train, 15. seg fine-tune train, 16. seg eval,
     # 17. seg card vs CPU, 18. seg CLI
-    from upp_torch.utils.config import ConfigDict
     seg_cfg = ConfigDict.from_nested(seg_config(SEG_CFG))
     seg_counts, seg_eval = phase_seg_train("seg train PEFT", seg, seg_cfg, card, device,
                                            True, SEG_TRAIN_CALLS)
@@ -1361,6 +1636,23 @@ def main() -> int:
     phase_seg_card_vs_cpu(seg, seg_cfg, card, device)
     phase_seg_cli(card)
 
+    # 19. pretrain train, 20. probe features, 21. pretrain card vs CPU
+    pre_cfg = cfg_from_yaml_file(PRETRAIN_CFG)
+    pre_model, pre_step = pretrain_setup(pre_cfg, device)
+    pre_counts = phase_train("pretrain train", pre_step, pre_model, (all_clouds,), card,
+                             PRETRAIN_CALLS + PRETRAIN_CHAMFER, B_PRETRAIN)
+    phase_probe_features(pre_model, all_clouds, card, device)
+    del pre_model, pre_step
+    phase_pretrain_card_vs_cpu(all_clouds, pre_cfg, card, device)
+
+    # 22. fine-tune cls train and eval, 23. fine-tune card vs CPU, 24. two-stage CLI
+    ft_cfg = ConfigDict.from_nested(finetune_config())
+    ft_counts = phase_finetune(clouds, labels, ft_cfg, card, device)
+    phase_finetune_logits(clouds, ft_cfg, card, device)
+    phase_cls_card_vs_cpu(clouds, labels, ft_cfg, card, device, stages=(("fine-tune", None),),
+                          tag="finetune")
+    phase_two_stage_cli(card)
+
     # the cls train step's forward makes the robust step's kernel calls
     kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"], B, "cls train step"),
                kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"], B, "cls train step"),
@@ -1370,9 +1662,17 @@ def main() -> int:
                             "seg PEFT train step"),
                kernel_entry("knn", rows, SEG_TRAIN_CALLS, seg_counts["knn"], B_SEG,
                             "seg PEFT train step")]
+    kernels += [kernel_entry(k, rows, PRETRAIN_CALLS, pre_counts[k], B_PRETRAIN, "pretrain")
+                for k in ("fps", "knn")]
+    kernels += [kernel_entry("chamfer", rows, PRETRAIN_CHAMFER, pre_counts["chamfer"],
+                             B_REBUILD, "pretrain"),
+                kernel_entry("fps", rows, FT_CALLS, ft_counts["fps"], B_FT, "finetune_cls"),
+                kernel_entry("knn", rows, FT_CALLS, ft_counts["knn"], B_FT, "finetune_cls")]
     print("[kernels] ms/plain_ms/bound_ms summed over one step's calls of each entry's path: "
-          f"fps and knn over one cls train step (B={B}, the robust step's calls) and one seg "
-          f"PEFT train step (B={B_SEG}); chamfer over one pretask train step (B={B_PRETASK}); "
+          f"fps and knn over one cls train step (B={B}, the robust step's calls), one seg "
+          f"PEFT train step (B={B_SEG}), one pretrain train step (B={B_PRETRAIN}) and one "
+          f"fine-tune cls train step (B={B_FT}); chamfer over one pretask train step "
+          f"(B={B_PRETASK}) and one pretrain train step (its {B_REBUILD} clouds of 32); "
           f"launches from those steps' runs; {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

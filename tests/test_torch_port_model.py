@@ -48,13 +48,15 @@ def random_jax_variables(jax_model, point_num, n_in, seed, inputs=None, **init_k
     [0.5, 1.5], everything else ~ N(0, 0.1). ``init_kw`` are the keyword
     arguments of the model call that creates every variable (the
     classifier's three-pass call by default), ``inputs`` its positional
-    arrays (zero clouds [2, n_in, 3] by default)."""
+    arrays (zero clouds [2, n_in, 3] by default); ``point_num`` None leaves
+    that keyword out (``Point_MAE`` takes none)."""
     rngs = {"params": jax.random.key(0), "dropout": jax.random.key(1),
-            "droppath": jax.random.key(2)}
+            "droppath": jax.random.key(2), "mask": jax.random.key(3)}
     kw = init_kw or dict(completion_prompt=True, denoise=True, deterministic=True)
+    if point_num is not None:
+        kw = {**kw, "point_num": point_num}
     inputs = (jnp.zeros((2, n_in, 3)),) if inputs is None else inputs
-    shapes = jax.eval_shape(lambda: jax_model.init(
-        rngs, *inputs, point_num=point_num, **kw))
+    shapes = jax.eval_shape(lambda: jax_model.init(rngs, *inputs, **kw))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):

@@ -12,14 +12,21 @@
                                                                          (full fine-tune seg)
     python -m upp_torch.main --test --peft_model --config cfgs/unify_shapenetpart_seg.yaml \
         --ckpts <ckpt-best.pth>                                          (seg test: mIoU)
+    python -m upp_torch.main --config cfgs/pretrain_synthetic.yaml      (MAE pretraining)
+    python -m upp_torch.main --finetune_model --config cfgs/finetune_modelnet_cls.yaml \
+        --ckpts <pretrain ckpt-last.pth>                                 (full fine-tune)
+    python -m upp_torch.main --test --finetune_model --config cfgs/finetune_modelnet_cls.yaml \
+        --ckpts <ckpt-best.pth>                                          (its test)
 
 Runs on CUDA unless ``--device cpu``. Ported: training and ``--test`` of
 classification configs (``--peft_model`` and ``--finetune_model``, for the
-models the port has), of pretask configs and of segmentation configs
-(``Point_MAE_unify_seg``, ``PointTransformer_seg``); dispatch as the
-reference's ``main.py:75-103``. Training runs get the JSONL (and, where
-tensorboardX imports, TensorBoard) writers under ``args.tfboard_path``. MAE
-pretraining is not ported yet."""
+models the port has, ``PointTransformer`` among them), of pretask configs
+and of segmentation configs (``Point_MAE_unify_seg``,
+``PointTransformer_seg``), and MAE pretraining (``task: pretrain``,
+``Point_MAE``, with the SVM probe when the config has an ``extra_train``
+split); dispatch as the reference's ``main.py:75-103``. Training runs get
+the JSONL (and, where tensorboardX imports, TensorBoard) writers under
+``args.tfboard_path``."""
 
 from __future__ import annotations
 
@@ -38,12 +45,16 @@ def main(argv=None):
         name=args.log_name)
     config = get_config(args, logger=logger)
     task = config.get("task", "classification")
-    # per-split batch sizes from total_bs (reference main.py:46-60); the
-    # pretask test sweeps one sample at a time for its per-taxonomy table
-    for split in ("train", "val", "test"):
+    # per-split batch sizes from total_bs (reference main.py:46-60): the
+    # pretask test sweeps one sample at a time for its per-taxonomy table;
+    # extra_train, the SVM probe's feature split, runs inference only and
+    # takes twice the batch
+    for split in ("train", "val", "test", "extra_train"):
         if split in config.dataset:
             config.dataset[split].others.bs = (
-                1 if task == "pretask" and split == "test" else int(config.total_bs))
+                1 if task == "pretask" and split == "test"
+                else 2 * int(config.total_bs) if split == "extra_train"
+                else int(config.total_bs))
             # the few-shot split comes from --way/--shot/--fold (the JAX
             # main.py:65-73; the reference parses them and drops them)
             if config.dataset[split]._base_.get("NAME") == "ModelNetFewShot":
@@ -54,7 +65,7 @@ def main(argv=None):
     log_args_to_file(args, "args", logger=logger)
     log_config_to_file(config, "config", logger=logger)
 
-    from .train import runner_cls, runner_pretask, runner_seg
+    from .train import runner_cls, runner_pretask, runner_pretrain, runner_seg
     if args.test:
         if task == "segmentation":
             return runner_seg.test_net(args, config, unify=args.peft_model)
@@ -72,8 +83,11 @@ def main(argv=None):
             return run(args, config, *writers)
         if task == "pretask":
             return runner_pretask.run_net(args, config, *writers)
-    raise NotImplementedError(f"upp_torch does not run task {task!r} yet "
-                              "(ported: classification, pretask, segmentation)")
+        if task == "pretrain":
+            return runner_pretrain.run_net(args, config, *writers)
+    raise NotImplementedError(f"upp_torch does not run {'--test of ' * args.test}task "
+                              f"{task!r} (ported: classification, pretask, segmentation; "
+                              "pretrain training)")
 
 
 if __name__ == "__main__":

@@ -11,12 +11,13 @@ torch's running-statistics semantics (momentum 0.1 here is flax's 0.9;
 batch statistics in ``.train()``, the unbiased variance folded into the
 running average, as the JAX ``TorchBatchNorm`` imitates), exact GELU.
 Random draws of train mode (dropout, drop-path) come from torch's RNG on the
-tensors' device.
+tensors' device, or drop-path's from a generator the caller passes.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,14 +31,16 @@ def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Per-sample stochastic depth (timm DropPath): in training, each sample
-    is zeroed with probability ``rate`` and the rest scaled by 1/(1-rate)."""
+    is zeroed with probability ``rate`` and the rest scaled by 1/(1-rate),
+    drawn from ``generator`` (torch's RNG when None)."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
     mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
-                       dtype=x.dtype).bernoulli_(keep)
+                       dtype=x.dtype).bernoulli_(keep, generator=generator)
     return x / keep * mask
 
 
@@ -141,7 +144,14 @@ class Encoder(nn.Module):
     """Mini-PointNet group tokenizer (``Point_MAE_unify.py:191-222``):
     [B, G, n, 3] center-relative neighbourhoods → tokens [B, G, C]. BatchNorm
     statistics span (batch, groups, points), as torch's BatchNorm1d on the
-    flattened (B*G, C, n) layout."""
+    flattened (B*G, C, n) layout.
+
+    ``vis_idx`` [B, V] (MAE pretraining) returns the tokens of those groups
+    alone, gathered right after the second BatchNorm: every group enters
+    both BatchNorms' statistics, as the reference encodes all groups before
+    its mask select (``Point_MAE_cp.py:352-357``), and the last conv and
+    pool run on the visible groups only (``upp_tpu/models/layers.py:224-228``).
+    Gathering before the encoder would change the statistics."""
 
     def __init__(self, encoder_channel: int):
         super().__init__()
@@ -153,13 +163,19 @@ class Encoder(nn.Module):
             PointConv(512, 512), nn.BatchNorm1d(512, eps=BN_EPS), nn.ReLU(),
             PointConv(512, encoder_channel))
 
-    def forward(self, point_groups):
+    def forward(self, point_groups, vis_idx: Optional[torch.Tensor] = None):
         bs, g, n, _ = point_groups.shape
         x = self.first_conv(point_groups.reshape(bs * g * n, 3))
         x = x.reshape(bs * g, n, 256)
         g_max = x.amax(1, keepdim=True).expand(-1, n, -1)
         x = torch.cat([g_max, x], dim=-1).reshape(bs * g * n, 512)
-        x = self.second_conv(x)
+        x = self.second_conv[1](self.second_conv[0](x))
+        if vis_idx is not None:
+            g = vis_idx.shape[1]
+            x = torch.gather(x.reshape(bs, -1, n, 512), 1,
+                             vis_idx[:, :, None, None].expand(-1, -1, n, 512))
+            x = x.reshape(bs * g * n, 512)
+        x = self.second_conv[3](self.second_conv[2](x))
         x = x.reshape(bs * g, n, self.encoder_channel).amax(1)
         return x.reshape(bs, g, self.encoder_channel)
 

@@ -10,17 +10,21 @@ The JAX package stacks every per-block tensor and runs each pass as a
   downstream → blocks[0:prompt depth]    (prompts + adapters [+ propagation])
              → blocks[prompt depth:L]    (adapters)
   none       → blocks[0:L]               (plain)
-  decoder    → its own blocks            (pretask adapters)
+  decoder    → its own blocks            (pretask adapters, or plain)
 
 The segmentation models also take the outputs of blocks {3, 7, 11} as
 feature taps (``feature_blocks``).
 
 All passes share the one backbone. Block ``i`` carries ``{path}_adapter``
 for i below the path's adapter length and ``{path}_prompts`` [num, C] for i
-below its prompt depth: the reference's per-block ``.pth`` keys. In
-``.train()`` block ``i`` of a stack of depth L drops its residual branches
-per sample at rate ``drop_path_rate * i / (L - 1)``
-(``upp_tpu/models/scan_blocks.py:222-224``).
+below its prompt depth: the reference's per-block ``.pth`` keys. A plain
+stack (``plain=True``: ``Point_MAE``, ``PointTransformer`` and the
+``Point_MAE`` decoder) has blocks without prompts, adapters or ``bnorm``,
+as the reference's plain blocks (``upp_tpu/models/scan_blocks.py:112-116``).
+In ``.train()`` block ``i`` of a stack of depth L drops its residual
+branches per sample at rate ``drop_path_rate * i / (L - 1)``
+(``upp_tpu/models/scan_blocks.py:222-224``), drawn from the ``generator``
+a pass is given, else from torch's RNG.
 """
 
 from __future__ import annotations
@@ -40,19 +44,21 @@ PATHS = ("rectify", "pretask", "downstream")
 
 
 class PromptedBlock(nn.Module):
-    """One pre-norm transformer block with per-path prompts, adapters and the
-    prompt-propagation pooling BatchNorm (``bnorm``)."""
+    """One pre-norm transformer block with per-path prompts, adapters and,
+    unless ``bnorm`` is False, the prompt-propagation pooling BatchNorm
+    (``bnorm``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  adapters: Sequence[str], prompts: Dict[str, int],
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, bnorm: bool = True):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = layer_norm(dim)
         self.attn = Attention(dim, num_heads)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
-        self.bnorm = nn.BatchNorm1d(dim, eps=BN_EPS)
+        if bnorm:
+            self.bnorm = nn.BatchNorm1d(dim, eps=BN_EPS)
         for path in adapters:
             setattr(self, f"{path}_adapter", Adapter(dim))
         for path, num in prompts.items():
@@ -61,7 +67,8 @@ class PromptedBlock(nn.Module):
             setattr(self, f"{path}_prompts", prm)
 
     def forward(self, x, pos, *, path: str, prompted: bool, use_adapter: bool,
-                classification: bool, propagation: Optional[dict]):
+                classification: bool, propagation: Optional[dict],
+                generator: Optional[torch.Generator] = None):
         x = x + pos
         num_prompts = 0
         if prompted:
@@ -72,8 +79,10 @@ class PromptedBlock(nn.Module):
                 x = torch.cat([x[:, :1], ptok, x[:, 1:]], dim=1)
             else:
                 x = torch.cat([ptok, x], dim=1)
-        x = x + drop_path(self.attn(self.norm1(x)), self.drop_path_rate, self.training)
-        x = x + drop_path(self.mlp(self.norm2(x)), self.drop_path_rate, self.training)
+        x = x + drop_path(self.attn(self.norm1(x)), self.drop_path_rate, self.training,
+                          generator)
+        x = x + drop_path(self.mlp(self.norm2(x)), self.drop_path_rate, self.training,
+                          generator)
         if prompted and propagation is not None:
             x = self._propagate(x, classification, propagation)
         if prompted:
@@ -140,7 +149,8 @@ def block_drop_path(rate: float, i: int, depth: int) -> float:
 def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
                prompt_depth: int, adapter_len: int,
                classification: bool = False, propagation: Optional[dict] = None,
-               feature_blocks: Sequence[int] = ()):
+               feature_blocks: Sequence[int] = (),
+               generator: Optional[torch.Generator] = None):
     """Run blocks[0:run_depth] as the JAX package's segments: [0,
     prompt_depth) prompted, [prompt_depth, run_depth) not. A segment uses the
     path's adapters only when they cover all of it (``adapter_len >= hi``).
@@ -153,7 +163,8 @@ def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
         use_adapter = adapter_len >= hi
         for i in range(lo, hi):
             x = blocks[i](x, pos, path=path, prompted=prompted, use_adapter=use_adapter,
-                          classification=classification, propagation=propagation)
+                          classification=classification, propagation=propagation,
+                          generator=generator)
             if i in feature_blocks:
                 taps.append(x)
     return (x, taps) if feature_blocks else x
@@ -161,11 +172,11 @@ def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
 
 class ScannedEncoderStack(nn.Module):
     """The shared prompted backbone (``blocks.blocks.{i}`` in the reference
-    ``.pth``)."""
+    ``.pth``); with ``plain`` the reference's plain ViT stack."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, prompter: PrompterConfig = PrompterConfig(),
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, plain: bool = False):
         super().__init__()
         p = prompter
         self.depth = depth
@@ -184,39 +195,46 @@ class ScannedEncoderStack(nn.Module):
                           adapters=[q for q in PATHS if i < self.adapter_len[q]],
                           prompts={q: getattr(p, f"{q}_prompts_num") for q in PATHS
                                    if i < self.prompt_len[q]},
-                          drop_path_rate=block_drop_path(drop_path_rate, i, depth))
+                          drop_path_rate=block_drop_path(drop_path_rate, i, depth),
+                          bnorm=not plain)
             for i in range(depth))
 
     def forward(self, x, pos, *, path: str, classification: bool = False,
-                propagation: Optional[dict] = None, feature_blocks: Sequence[int] = ()):
+                propagation: Optional[dict] = None, feature_blocks: Sequence[int] = (),
+                generator: Optional[torch.Generator] = None):
         """One pass along ``path`` ("none": every block, no prompts, no
-        adapters, the plain stack of ``PointTransformer_seg``); with
-        ``feature_blocks`` returns (x, taps after those blocks)."""
+        adapters, the path of ``PointTransformer_seg`` and of a plain
+        stack); with ``feature_blocks`` returns (x, taps after those
+        blocks)."""
         run_depth = self.run_depth.get(path, self.depth)
         return run_blocks(self.blocks, x, pos, path=path, run_depth=run_depth,
                           prompt_depth=min(self.prompt_len.get(path, 0), run_depth),
                           adapter_len=self.adapter_len.get(path, 0),
                           classification=classification, propagation=propagation,
-                          feature_blocks=feature_blocks)
+                          feature_blocks=feature_blocks, generator=generator)
 
 
 class ScannedDecoderStack(nn.Module):
-    """MAE decoder: blocks with pretask adapters, then LayerNorm over the
-    last ``return_token_num`` tokens (``MAE_decoder.*`` in the reference
-    ``.pth``)."""
+    """MAE decoder: blocks with pretask adapters (plain blocks with
+    ``adapters=False``: the ``Point_MAE`` decoder, ``Point_MAE_cp.py:205-237``),
+    then LayerNorm over the last ``return_token_num`` tokens (``MAE_decoder.*``
+    in the reference ``.pth``)."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.0):
+                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.0,
+                 adapters: bool = True):
         super().__init__()
         self.blocks = nn.ModuleList(
-            PromptedBlock(embed_dim, num_heads, mlp_ratio, adapters=("pretask",),
-                          prompts={},
-                          drop_path_rate=block_drop_path(drop_path_rate, i, depth))
+            PromptedBlock(embed_dim, num_heads, mlp_ratio,
+                          adapters=("pretask",) if adapters else (), prompts={},
+                          drop_path_rate=block_drop_path(drop_path_rate, i, depth),
+                          bnorm=adapters)
             for i in range(depth))
+        self.adapter_len = depth if adapters else 0
         self.norm = layer_norm(embed_dim)
 
-    def forward(self, x, pos, return_token_num: int):
-        n = len(self.blocks)
-        x = run_blocks(self.blocks, x, pos, path="pretask", run_depth=n,
-                       prompt_depth=0, adapter_len=n)
+    def forward(self, x, pos, return_token_num: int,
+                generator: Optional[torch.Generator] = None):
+        x = run_blocks(self.blocks, x, pos, path="pretask", run_depth=len(self.blocks),
+                       prompt_depth=0, adapter_len=self.adapter_len, generator=generator)
         return self.norm(x[:, -return_token_num:])

@@ -195,9 +195,12 @@ def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     metrics = validate(eval_step, val_loader, device, 0, logger=logger)
 
     # `or -1` would drop epoch 0; the reference's `joint_optimization == epoch`
-    # accepts it
+    # accepts it. A full fine-tune never switches: no baseline parameter is
+    # in the joint set, so the switch would leave nothing to train (the JAX
+    # package switches there too)
     jo = getattr(args, "joint_optimization", None)
-    joint_epoch = int(jo) if jo is not None else -1
+    peft = getattr(args, "peft_model", True)
+    joint_epoch = int(jo) if jo is not None and peft else -1
 
     def joint_switch():
         print_log("[joint optimization] switching trainable set", logger=logger)
@@ -255,7 +258,7 @@ def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
 
 def finetune_run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     """Full fine-tuning (``tools/runner_finetune.py``): the same loop with
-    every parameter trainable."""
+    every parameter trainable throughout (no joint switch)."""
     args.peft_model = False
     return run_net(args, config, train_writer, val_writer)
 

@@ -19,7 +19,11 @@ its import shim):
   ...
 
 ``core/`` is left out for a model whose JAX tree has none
-(``PointTransformer_seg``).
+(``PointTransformer_seg``, ``Point_MAE``, ``PointTransformer``), and
+``Point_MAE``'s ``MAE_encoder.`` prefix has no JAX counterpart
+(``MAE_encoder.blocks.blocks.{i}`` → ``blocks/...[i]``, as the reference's
+checkpoint loader strips it); its ``increase_dim.0`` is
+``increase_dim_conv``.
 
 Leaves: a Linear/Conv ``weight`` is the transposed ``kernel``, a norm's
 ``weight`` its ``scale``, ``running_mean``/``running_var`` the batch_stats
@@ -44,6 +48,7 @@ _RENAMES = [
     (r"^(pos_embed|decoder_pos_embed|shape_pred|coarse_pred|predict_token_generator)\.2$",
      r"\1/lin1"),
     (r"^dense_pred\.0$", "dense_pred_conv"),
+    (r"^increase_dim\.0$", "increase_dim_conv"),
     (r"^rectify_prompter\.(\w+)\.mlp_convs\.(\d+)$", r"rectify_prompter/\1/conv\2"),
     (r"^rectify_prompter\.(\w+)\.mlp_bns\.(\d+)$", r"rectify_prompter/\1/bn\2"),
     (r"^rectify_prompter\.score_head\.0$", "rectify_prompter/score0"),
@@ -97,15 +102,17 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}) or {})
     core = "core/" if "core" in variables["params"] else ""
-    norms = {name for name, m in model.named_modules() if isinstance(m, _NORMS)}
+    norms = {name.removeprefix("MAE_encoder.") for name, m in model.named_modules()
+             if isinstance(m, _NORMS)}
     out = {}
     for key, ref in model.state_dict().items():
         if key.endswith("num_batches_tracked"):
             out[key] = torch.zeros_like(ref)
             continue
-        mod, _, leaf = key.rpartition(".")
+        jkey = key.removeprefix("MAE_encoder.")
+        mod, _, leaf = jkey.rpartition(".")
         row = None
-        m = _BLOCK.match(key)
+        m = _BLOCK.match(jkey)
         if m:
             stack, row, rest = m.group(1), int(m.group(2)), m.group(3)
             base = core + _STACKS[stack]
