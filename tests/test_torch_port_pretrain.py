@@ -10,7 +10,8 @@ to 128, batch 4), on the same clouds and on the JAX step's draws:
 * one ``runner_cls.make_train_step`` of ``PointTransformer`` on the twin of
   ``cfgs/finetune_modelnet_cls.yaml`` (crop, noise, augmentation, every
   parameter trainable): loss, accuracy and every gradient;
-* the CLI's two stages on the CPU: ``task: pretrain`` with the probe, then
+* the CLI on the CPU: ``task: pretrain`` with the probe; a warm start from
+  a ``Point_MAE`` checkpoint; the two stages, ``task: pretrain`` then
   ``--finetune_model --ckpts`` its ``ckpt-last.pth`` and ``--test``.
 
 The JAX steps run jitted: neither model has the top-5% drop whose near ties
@@ -300,27 +301,82 @@ def test_main_gives_extra_train_twice_the_batch(tmp_path, monkeypatch):
     assert bs == {"train": 6, "val": 6, "test": 6, "extra_train": 12}
 
 
+def _pretrain_data(size=8, extra_train=False):
+    splits = [("train", "train"), ("val", "test"), ("test", "test")]
+    if extra_train:
+        splits.append(("extra_train", "train"))
+    return {s: {"_base_": {**SYNTH, "SIZE": size}, "others": {"subset": sub}}
+            for s, sub in splits}
+
+
+def test_cli_pretrain_probes_and_keeps_the_best(tmp_path, monkeypatch):
+    """With ``extra_train`` and ``val`` splits, ``task: pretrain`` runs the
+    SVM probe after epoch 1 and writes ``ckpt-best`` and ``ckpt-last``."""
+    pytest.importorskip("sklearn")
+    monkeypatch.chdir(tmp_path)
+    from upp_torch.main import main
+    pre = {**PRETRAIN, "dataset": _pretrain_data(extra_train=True), "task": "pretrain",
+           "total_bs": 4, "max_epoch": 1}
+    best = main(["--config", str(_twin(tmp_path, "pt_probe", pre)), "--device", "cpu"])
+    assert 0.0 <= best.acc <= 100.0
+    text = _log(tmp_path, "pt_probe")
+    assert "[SVM probe] acc =" in text and "[Validation] EPOCH: 1" in text
+    (last,) = tmp_path.glob("experiments/pt_probe/**/ckpt-last.pth")
+    assert (last.parent / "ckpt-best.pth").exists()
+
+
+@pytest.mark.parametrize("flag", ["--start_ckpts", "--ckpts"])
+def test_cli_pretrain_warm_starts_from_a_point_mae_checkpoint(tmp_path, monkeypatch, flag):
+    """A ``Point_MAE`` ``.pth`` (the reference's ``base_model`` layout, with
+    ``MAE_encoder.*`` keys) warm-starts ``task: pretrain`` whole: nothing
+    missing, nothing unexpected, every tensor as saved."""
+    monkeypatch.chdir(tmp_path)
+    from upp_torch.main import main
+    pre = {**PRETRAIN, "dataset": _pretrain_data(size=4), "task": "pretrain",
+           "total_bs": 4, "max_epoch": 0}
+    saved = runner_cls.init_model(types.SimpleNamespace(seed=9), ConfigDict.from_nested(pre),
+                                  torch.device("cpu")).state_dict()
+    assert any(k.startswith("MAE_encoder.blocks.") for k in saved)
+    path = tmp_path / "mae.pth"
+    torch.save({"base_model": saved}, path)
+    loaded = []
+    load = runner_cls.load_weights
+
+    def recording_load(model, *a, **kw):
+        report = load(model, *a, **kw)
+        loaded.append((report, {k: v.clone() for k, v in model.state_dict().items()}))
+        return report
+
+    monkeypatch.setattr(runner_cls, "load_weights", recording_load)
+    name = "pt_warm_" + flag.strip("-")     # a logger of its own per case
+    main(["--config", str(_twin(tmp_path, name, pre)), flag, str(path), "--device", "cpu"])
+    (((missing, unexpected), state),) = loaded
+    assert missing == [] and unexpected == []
+    assert state.keys() == saved.keys()
+    for k, v in saved.items():
+        assert torch.equal(state[k], v), k
+    assert f"loaded {len(saved)} tensors from {path}; 0 missing, 0 unexpected" in \
+        _log(tmp_path, name)
+
+
 def test_cli_pretrains_then_finetunes_on_cpu(tmp_path, monkeypatch):
     """``upp_torch.main`` pretrains a small ``Point_MAE`` for epochs 0-1
-    with the SVM probe (``ckpt-best`` and ``ckpt-last``), then
+    (``ckpt-last``; no ``extra_train`` split, so no probe), then
     ``--finetune_model --ckpts`` its ``ckpt-last.pth`` trains
     ``PointTransformer`` with every backbone tensor loaded, every parameter
     trainable past ``--joint_optimization 0``, then ``--test
     --finetune_model --ckpts`` its ``ckpt-best.pth``."""
-    pytest.importorskip("sklearn")
     monkeypatch.chdir(tmp_path)
     from upp_torch.main import main
-    data = {s: {"_base_": {**SYNTH, "SIZE": 8}, "others": {"subset": sub}}
-            for s, sub in (("train", "train"), ("val", "test"), ("test", "test"),
-                           ("extra_train", "train"))}
+    data = _pretrain_data()
     pre = {**PRETRAIN, "dataset": data, "task": "pretrain", "total_bs": 4, "max_epoch": 1}
     best = main(["--config", str(_twin(tmp_path, "pt_pre", pre)), "--device", "cpu"])
-    assert 0.0 <= best.acc <= 100.0
+    assert best.acc == 0.0
     text = _log(tmp_path, "pt_pre")
     assert len(re.findall(r"EPOCH: \d+ EpochTime = [\d.]+ \(s\) LossX1000 = [\d.]+", text)) == 2
-    assert "[SVM probe] acc =" in text and "[Validation] EPOCH: 1" in text
+    assert "[SVM probe]" not in text
     (last,) = tmp_path.glob("experiments/pt_pre/**/ckpt-last.pth")
-    assert (last.parent / "ckpt-best.pth").exists()
+    assert not (last.parent / "ckpt-best.pth").exists()
     saved = torch.load(last, map_location="cpu", weights_only=True)
     assert saved["epoch"] == 1 and "MAE_encoder.blocks.blocks.0.attn.qkv.weight" in \
         saved["base_model"]

@@ -64,7 +64,7 @@ class PointMAE(nn.Module):
         self.MAE_decoder = ScannedDecoderStack(tc.trans_dim, tc.decoder_depth,
                                                tc.decoder_num_heads,
                                                drop_path_rate=tc.drop_path_rate,
-                                               adapters=False)
+                                               plain=True)
         self.increase_dim = nn.Sequential(PointConv(tc.trans_dim, 3 * cfg.group_size))
         self.mask_token = nn.Parameter(torch.zeros(1, 1, tc.trans_dim))
         nn.init.trunc_normal_(self.mask_token, std=0.02)

@@ -44,20 +44,23 @@ PATHS = ("rectify", "pretask", "downstream")
 
 
 class PromptedBlock(nn.Module):
-    """One pre-norm transformer block with per-path prompts, adapters and,
-    unless ``bnorm`` is False, the prompt-propagation pooling BatchNorm
-    (``bnorm``)."""
+    """One pre-norm transformer block with per-path prompts, adapters and the
+    prompt-propagation pooling BatchNorm (``bnorm``); a ``plain`` block has
+    none of the three."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 adapters: Sequence[str], prompts: Dict[str, int],
-                 drop_path_rate: float = 0.0, bnorm: bool = True):
+                 adapters: Sequence[str] = (), prompts: Optional[Dict[str, int]] = None,
+                 drop_path_rate: float = 0.0, plain: bool = False):
         super().__init__()
+        prompts = prompts or {}
+        if plain and (adapters or prompts):
+            raise ValueError("a plain block takes no adapters and no prompts")
         self.drop_path_rate = drop_path_rate
         self.norm1 = layer_norm(dim)
         self.attn = Attention(dim, num_heads)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
-        if bnorm:
+        if not plain:
             self.bnorm = nn.BatchNorm1d(dim, eps=BN_EPS)
         for path in adapters:
             setattr(self, f"{path}_adapter", Adapter(dim))
@@ -172,13 +175,14 @@ def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
 
 class ScannedEncoderStack(nn.Module):
     """The shared prompted backbone (``blocks.blocks.{i}`` in the reference
-    ``.pth``); with ``plain`` the reference's plain ViT stack."""
+    ``.pth``); with ``plain`` the reference's plain ViT stack, whatever the
+    ``prompter``."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, prompter: PrompterConfig = PrompterConfig(),
                  drop_path_rate: float = 0.0, plain: bool = False):
         super().__init__()
-        p = prompter
+        p = PrompterConfig() if plain else prompter
         self.depth = depth
         self.run_depth = {"rectify": p.rectify_depth or depth,
                           "pretask": p.pretask_depth or depth,
@@ -196,7 +200,7 @@ class ScannedEncoderStack(nn.Module):
                           prompts={q: getattr(p, f"{q}_prompts_num") for q in PATHS
                                    if i < self.prompt_len[q]},
                           drop_path_rate=block_drop_path(drop_path_rate, i, depth),
-                          bnorm=not plain)
+                          plain=plain)
             for i in range(depth))
 
     def forward(self, x, pos, *, path: str, classification: bool = False,
@@ -216,21 +220,21 @@ class ScannedEncoderStack(nn.Module):
 
 class ScannedDecoderStack(nn.Module):
     """MAE decoder: blocks with pretask adapters (plain blocks with
-    ``adapters=False``: the ``Point_MAE`` decoder, ``Point_MAE_cp.py:205-237``),
+    ``plain``: the ``Point_MAE`` decoder, ``Point_MAE_cp.py:205-237``),
     then LayerNorm over the last ``return_token_num`` tokens (``MAE_decoder.*``
     in the reference ``.pth``)."""
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, drop_path_rate: float = 0.0,
-                 adapters: bool = True):
+                 plain: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
             PromptedBlock(embed_dim, num_heads, mlp_ratio,
-                          adapters=("pretask",) if adapters else (), prompts={},
+                          adapters=() if plain else ("pretask",),
                           drop_path_rate=block_drop_path(drop_path_rate, i, depth),
-                          bnorm=adapters)
+                          plain=plain)
             for i in range(depth))
-        self.adapter_len = depth if adapters else 0
+        self.adapter_len = 0 if plain else depth
         self.norm = layer_norm(embed_dim)
 
     def forward(self, x, pos, return_token_num: int,

@@ -7,7 +7,11 @@ reference's released checkpoints and the port's own (``checkpoint.py``, the
 pretask phase's ``ckpt-best.pth``) load with the reference's key clean-up
 alone: the state dict is ``base_model``, else ``model``, else the whole
 dict; ``module.`` is stripped, ``_block`` dropped, and a leading
-``MAE_encoder.`` or ``base_model.`` stripped. A key the model lacks, or
+``MAE_encoder.`` or ``base_model.`` stripped unless the model has the key
+as it is: ``Point_MAE`` keeps ``MAE_encoder.*`` (a warm start of the
+pretraining, as the reference's ``builder.load_model``), while
+``PointTransformer`` takes the same file's backbone stripped (the
+reference's fine-tune recipe). A key the model lacks, or
 whose shape differs from the model's, is reported as unexpected, never
 fatal; a model key the checkpoint does not fill is reported as missing
 (``load_state_dict(strict=False)``'s report).
@@ -16,7 +20,7 @@ fatal; a model key the checkpoint does not fill is reported as missing
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Tuple
+from typing import Container, Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -24,9 +28,11 @@ from torch import nn
 from ..utils.logger import print_log
 
 
-def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_torch_state_dict(path: str, keep: Container[str] = ()
+                          ) -> Dict[str, torch.Tensor]:
     """The state dict of the ``.pth`` at ``path``, keys cleaned up as the
-    reference does (``Point_MAE_unify.py:505-516``)."""
+    reference does (``Point_MAE_unify.py:505-516``); a key in ``keep`` keeps
+    its prefix."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     except Exception:
@@ -39,10 +45,10 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in state.items():
         k = k.replace("module.", "").replace("_block", "")
-        if k.startswith("MAE_encoder."):
-            k = k[len("MAE_encoder."):]
-        elif k.startswith("base_model."):
-            k = k[len("base_model."):]
+        for prefix in ("MAE_encoder.", "base_model."):
+            if k not in keep and k.startswith(prefix):
+                k = k[len(prefix):]
+                break
         out[k] = v
     return out
 
@@ -52,7 +58,7 @@ def load_weights(model: nn.Module, path: str, logger=None) -> Tuple[List[str], L
     (missing, unexpected) keys (the first 20 of each are logged)."""
     own = model.state_dict()
     fit, unexpected = {}, []
-    for k, v in load_torch_state_dict(path).items():
+    for k, v in load_torch_state_dict(path, keep=own).items():
         if k not in own:
             unexpected.append(k)
         elif tuple(v.shape) != tuple(own[k].shape):
