@@ -121,7 +121,29 @@ Phases, each fatal on failure:
      the fine-tune twin for epochs 0-1, then ``--test --finetune_model
      --ckpts <its ckpt-best.pth>`` (ckpt-last when no validation beat 0 %);
      the load reports as missing only the cls tokens and head, as
-     unexpected only the decoder side.
+     unexpected only the decoder side;
+ 25. dist world1: phase 13's CLI command with ``--deterministic`` under
+     ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+     upp_torch.main --launcher pytorch`` (NCCL, a world of one) and without
+     the launcher, side by side: their ``ckpt-last.pth`` equal bit for bit
+     (without ``--deterministic`` the backwards' atomic scatter-adds make
+     runs differ in their low bits, and the noisy passes' near ties can turn
+     that into other sampled points); then the cls PEFT train step at batch
+     120 through the launched code path (no collective runs), timed beside
+     phase 10's time;
+ 26. dist two ranks, one card: two processes share the card over gloo
+     (passed explicitly: NCCL takes one rank a device), each with half of
+     the global batch: the cls PEFT step at batch 120 (60/60) without the
+     noisy passes and with them, the joint step after the switch, the
+     pretrain step at batch 128 (64/64), each against this process's
+     one-process step at ``DIST_TOL`` (the continuous steps tensor by
+     tensor: loss, gradients, updated parameters, running statistics; the
+     noisy ones, whose near ties reorder, by loss and gradient norm at phase
+     12's bounds) and the ranks equal bit for bit; the collectives of each
+     step by kind and bytes, and ms per step (two processes time-sharing
+     one card: not a scaling number);
+ 27. dist nccl two cards: the same over NCCL, one card a rank, when there
+     are two cards; else it prints that it did not run and why.
 Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
 clouds and on tie-heavy grid clouds of 2048 points, and FPS, kNN and
 Chamfer at the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32
@@ -1017,7 +1039,7 @@ def phase_cls_train(clouds, labels, config, card, device, backward_ms):
         print(f"[cls train joint profile] the profile saw {spans['knn_backward'][0]:g} kNN "
               f"backward calls a step of the step's {sum(bwd.calls.values())}: its device "
               "time not measured", flush=True)
-    return counts
+    return counts, step_ms
 
 
 def phase_cls_card_vs_cpu(clouds, labels, config, card, device, stages=None, tag="cls"):
@@ -1513,6 +1535,353 @@ def phase_two_stage_cli(card):
           f"--ckpts {tested}.pth: acc {acc:.4f}, {test_s:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 25-27: data parallelism (upp_torch.parallel)
+
+DIST_DIR = os.path.join(CLI_DIR, "dist")
+N_RANKS = 2             # ranks of phases 26-27
+# Phases 26-27 hold each step of the ranks to one process's. Two kinds of
+# step (float32 on the card; the ranks' GEMMs see 60 or 64 rows where one
+# process sees 120 or 128, and BatchNorm's statistics come through
+# all-reduces, so the rounding differs):
+# * continuous ones, whose discrete choices (FPS, kNN, the group split) see
+#   the input clouds alone: the cls PEFT step without the noisy passes
+#   (crop-free FPS subsample, the downstream pass with its cross-rank
+#   propagation gather, BatchNorms, dropout, drop-path) and the pretrain
+#   step. Loss rtol 1e-4; each gradient tensor's relative norm 1e-3; a
+#   gradient that is zero in exact arithmetic (a bias right before a
+#   train-mode BatchNorm: below 1e-4 of the largest in one process) is
+#   float32 noise, held below 1e-4 of the largest; running statistics
+#   rtol 1e-4 / atol 1e-6; an updated parameter within 2.004 lr (AdamW's
+#   first step moves an element by at most lr either way).
+# * the flagship noisy cls steps, PEFT and joint: the rectify pass nudges
+#   the points and sorts them by score, and the completion pass re-samples
+#   them by FPS, so a last-bit difference in a score or a coordinate
+#   reorders near ties and picks other points (tests/test_torch_port_dist.py
+#   holds this step exactly in float64, where no tie moves). They are held
+#   to the bounds of the card-vs-CPU phase 12, which meets the same near
+#   ties: loss rtol 1e-3 / atol 2e-3, the trainable gradients' global norm
+#   rtol 1e-2.
+DIST_TOL = {"loss": 1e-4, "grad": 1e-3, "grad_floor": 1e-4, "running_rtol": 1e-4,
+            "running_atol": 1e-6, "noisy_loss_rtol": 1e-3, "noisy_loss_atol": 2e-3,
+            "noisy_norm_rtol": 1e-2}
+DIST_CONTINUOUS = ("cls clean", "pretrain")
+DIST_NOISY = ("cls peft", "cls joint")
+
+
+def _child_env(**extra):
+    """The environment of a child process: this one's, without a process
+    group's variables unless given; every rank runs on this host, so gloo
+    and NCCL connect over the loopback interface unless told otherwise."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.update(extra)
+    return env
+
+
+def _run_children(children, timeout):
+    """Run (name, command, environment) children at once, each in a session
+    of its own with its output in ``DIST_DIR/<name>.log``; wait for all,
+    kill every one left (its whole session) at the deadline or when one
+    fails, and raise with the failed one's log tail."""
+    import signal
+    os.makedirs(DIST_DIR, exist_ok=True)
+    procs = []
+    try:
+        for name, cmd, env in children:
+            log = os.path.join(DIST_DIR, f"{name}.log")
+            with open(log, "w") as f:
+                procs.append((name, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                                          env=env, start_new_session=True)))
+        deadline = time.time() + timeout
+        for name, log, p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.time(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name}: no exit within {timeout} s; log tail "
+                                     f"{open(log).read()[-3000:]}") from None
+            if p.returncode != 0:
+                raise AssertionError(f"{name}: exit {p.returncode}; log tail "
+                                     f"{open(log).read()[-3000:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def _free_port() -> str:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return str(sock.getsockname()[1])
+
+
+def phase_dist_world1(card, peft_ms):
+    """Phase 25: phase 13's CLI command with ``--deterministic`` under
+    ``python -m torch.distributed.run --standalone --nproc_per_node 1
+    --launcher pytorch`` (NCCL, a world of one: no collective runs) and,
+    side by side, without the launcher: their ``ckpt-last.pth`` must be
+    equal bit for bit (model and optimizer). Without ``--deterministic``
+    the atomic scatter-adds of the backwards make runs differ in their low
+    bits, and the noisy passes' near ties (phase 26) can turn that into
+    other sampled points. Then the cls PEFT train step at batch 120 through
+    the launched code path, timed as phase 10 times it."""
+    import glob
+    cfg = os.path.join(CLI_DIR, "cls_cli_train.yaml")
+    argv = ["--peft_model", "--config", cfg, "--joint_optimization", "1", "--deterministic"]
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    t0 = time.time()
+    _run_children([("world1_cli", torchrun + ["-m", "upp_torch.main", "--launcher", "pytorch",
+                                              *argv, "--exp_name", "chip_smoke_world1"],
+                    _child_env()),
+                   ("plain_cli", [sys.executable, "-m", "upp_torch.main", *argv,
+                                  "--exp_name", "chip_smoke_plain"], _child_env())],
+                  timeout=300)
+    cli_s = time.time() - t0
+
+    def last(exp):
+        path = sorted(glob.glob(f"experiments/cls_cli_train/plain-network/peft-{exp}/*/"
+                                "ckpt-last.pth"))[-1]
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    launched, plain = last("chip_smoke_world1"), last("chip_smoke_plain")
+    tensors = [(f"base_model.{k}", v, plain["base_model"][k])
+               for k, v in launched["base_model"].items()]
+    tensors += [(f"optimizer.{i}.{k}", v, plain["optimizer"]["state"][i][k])
+                for i, st in launched["optimizer"]["state"].items() for k, v in st.items()]
+    differ = [n for n, a, b in tensors if not torch.equal(a, b)]
+    if (differ or launched["epoch"] != 2 or plain["epoch"] != 2
+            or launched["base_model"].keys() != plain["base_model"].keys()
+            or launched["optimizer"]["state"].keys() != plain["optimizer"]["state"].keys()):
+        raise AssertionError(f"dist world1: the launched run's ckpt-last differs from the plain "
+                             f"run's in {len(differ)} tensors {differ[:5]}, epochs "
+                             f"{launched['epoch']} / {plain['epoch']}")
+    out = os.path.join(DIST_DIR, "world1_time.json")
+    _run_children([("world1_time", torchrun + [os.path.abspath(__file__), "--dist-worker",
+                                               "time", out], _child_env())], timeout=300)
+    timed = json.load(open(out))
+    if timed["counts"]:
+        raise AssertionError(f"dist world1: collectives ran in a world of one: {timed['counts']}")
+    print(f"[dist world1] phase 13's CLI with --deterministic under torchrun --nproc_per_node 1 "
+          f"--launcher pytorch (NCCL) and without the launcher: ckpt-last equal bit for bit "
+          f"({len(tensors)} tensors, model and AdamW moments, epoch {launched['epoch']}); both "
+          f"runs {cli_s:.1f} s of wall time side by side; cls PEFT train step at B={B} through "
+          f"the launched code path (backend {timed['backend']}, world {timed['world']}, no "
+          f"collective): {timed['ms']:.2f} ms/step, phase 10 {peft_ms:.2f} ms/step ({card})",
+          flush=True)
+
+
+def dist_steps(device, timed=False):
+    """This process's share of phases 26-27's steps, each from the seeded
+    weights on this rank's rows of the global batches: the cls PEFT step at
+    batch 120 without the noisy passes (``cls clean``), with them (``cls
+    peft``), and the joint step after ``set_trainable(JOINT_PEFT_LIST)`` on
+    the live optimizer (``cls joint``); the pretrain step at batch 128.
+    For each: the global loss, the collectives by kind, the averaged
+    gradients, the parameters with a gradient and the running statistics
+    after the step (on the CPU), the learning rate; with ``timed`` also ms
+    per step (mean of 5 after a warm-up). The cls steps run without the
+    gradient clip, as phase 12's: a clipped norm would hide the gradients'
+    own."""
+    from upp_torch.parallel.dist import COUNTS, get_dist_info
+    from upp_torch.train.optim import set_trainable
+    from upp_torch.train.runner_cls import JOINT_PEFT_LIST, PEFT_LIST
+    from upp_torch.utils.config import cfg_from_yaml_file
+    rank, world = get_dist_info()
+    clouds_np, labels_np = synthetic_clouds(B_PRETRAIN)
+
+    def mine(a, n):
+        b = n // world
+        return torch.from_numpy(a[:n][rank * b:(rank + 1) * b]).to(device)
+
+    out = {}
+
+    def run(name, step, model, lr, *batch):
+        COUNTS.clear()
+        m = step(*batch)
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(m["loss"]), "counts": dict(COUNTS), "lr": lr,
+                     "grads": {n: p.grad.to("cpu", copy=True)
+                               for n, p in model.named_parameters() if p.grad is not None},
+                     "params": {n: p.detach().to("cpu", copy=True)
+                                for n, p in model.named_parameters() if p.grad is not None},
+                     "running": {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+                                 if "running_" in k}}
+        if timed:
+            out[name]["ms"] = cuda_ms(lambda: step(*batch), reps=5, warmup=1)
+
+    pts, lab = mine(clouds_np, B), mine(labels_np, B)
+    for name, noisy, switch in (("cls clean", False, False), ("cls peft", True, False),
+                                ("cls joint", True, True)):
+        config = cfg_from_yaml_file(CFG)
+        config.noisy_train = noisy
+        config.grad_norm_clip = None    # the gradients compared are the step's own
+        model, _, step = cls_train_setup(config, device, PEFT_LIST)
+        if switch:
+            set_trainable(model, JOINT_PEFT_LIST)
+        run(name, step, model, float(config.optimizer.kwargs.lr), pts, lab)
+        del model, step
+    pre_cfg = cfg_from_yaml_file(PRETRAIN_CFG)
+    model, step = pretrain_setup(pre_cfg, device)
+    run("pretrain", step, model, float(pre_cfg.optimizer.kwargs.lr), mine(clouds_np, B_PRETRAIN))
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_worker(argv) -> int:
+    """A child process of phases 25-27 (``chip_smoke.py --dist-worker``):
+    ``time OUT`` under torchrun (a world of one) times the cls PEFT train
+    step at batch 120; ``ranks BACKEND OUT_DIR`` is one rank of phase 26 or
+    27 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_*`` set by the
+    parent) and saves ``dist_steps`` to ``OUT_DIR/rank<r>.pt``."""
+    from upp_torch import resolve_device
+    from upp_torch.parallel.dist import COUNTS, get_dist_info, init_dist
+    if argv[0] == "time":
+        device = resolve_device(init_dist("pytorch", "cuda"))
+        from upp_torch.train.runner_cls import PEFT_LIST
+        from upp_torch.utils.config import cfg_from_yaml_file
+        clouds_np, labels_np = synthetic_clouds(B)
+        _, _, step = cls_train_setup(cfg_from_yaml_file(CFG), device, PEFT_LIST)
+        pts, lab = torch.from_numpy(clouds_np).to(device), torch.from_numpy(labels_np).to(device)
+        COUNTS.clear()
+        ms = cuda_ms(lambda: step(pts, lab), reps=10, warmup=1)
+        with open(argv[1], "w") as f:
+            json.dump({"ms": ms, "counts": dict(COUNTS), "world": get_dist_info()[1],
+                       "backend": torch.distributed.get_backend()}, f)
+    else:
+        backend, out_dir = argv[1], argv[2]
+        device = resolve_device(init_dist("pytorch", "cuda", backend=backend))
+        torch.save(dist_steps(device, timed=True),
+                   os.path.join(out_dir, f"rank{get_dist_info()[0]}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _grad_norm(grads):
+    return sum(float((g.double() ** 2).sum()) for g in grads.values()) ** 0.5
+
+
+def _hold_dist(tag, name, ref, ranks):
+    """One step of ``N_RANKS`` ranks against one process at ``DIST_TOL``
+    (``DIST_CONTINUOUS`` tensor by tensor, ``DIST_NOISY`` by loss and
+    gradient norm), and the ranks against each other bit for bit. Returns a
+    summary."""
+    got = ranks[0][name]
+    want = ref[name]
+    for other in ranks[1:]:
+        o = other[name]
+        for part in ("grads", "params", "running"):
+            bad = [k for k in got[part] if not torch.equal(got[part][k], o[part][k])]
+            if bad or got[part].keys() != o[part].keys():
+                raise AssertionError(f"{tag} {name}: ranks differ in {part} {bad[:5]}")
+        if o["loss"] != got["loss"]:
+            raise AssertionError(f"{tag} {name}: ranks' losses {got['loss']} vs {o['loss']}")
+    if got["grads"].keys() != want["grads"].keys():
+        raise AssertionError(f"{tag} {name}: tensors with a gradient differ")
+    norm, norm_ref = _grad_norm(got["grads"]), _grad_norm(want["grads"])
+    whole = sum(float(((got["grads"][k] - g).double() ** 2).sum())
+                for k, g in want["grads"].items()) ** 0.5 / norm_ref
+    c = got["counts"]
+    tail = (f"collectives a step: {c.get('forward', 0)} forward ({c.get('forward_bytes', 0)} "
+            f"B), {c.get('backward', 0)} backward ({c.get('backward_bytes', 0)} B), "
+            f"{c.get('gradients', 0)} gradient all-reduce ({c.get('gradients_bytes', 0)} B), "
+            f"{c.get('host', 0)} for the logged metrics; {got['ms']:.2f} ms/step")
+    if name in DIST_NOISY:
+        if not np.isclose(got["loss"], want["loss"], rtol=DIST_TOL["noisy_loss_rtol"],
+                          atol=DIST_TOL["noisy_loss_atol"]):
+            raise AssertionError(f"{tag} {name}: loss {got['loss']} vs one process {want['loss']}")
+        if not np.isclose(norm, norm_ref, rtol=DIST_TOL["noisy_norm_rtol"], atol=0.0):
+            raise AssertionError(f"{tag} {name}: gradient norm {norm} vs one process {norm_ref}")
+        return (f"{name}: loss {got['loss']:.6f} vs one process {want['loss']:.6f} (rtol 1e-3, "
+                f"atol 2e-3); trainable gradient norm {norm:.6g} vs {norm_ref:.6g} (rtol 1e-2), "
+                f"the gradients {whole:.3g} apart (whole relative norm: other points picked "
+                f"at the near ties); {tail}")
+    if not np.isclose(got["loss"], want["loss"], rtol=DIST_TOL["loss"], atol=0.0):
+        raise AssertionError(f"{tag} {name}: loss {got['loss']} vs one process {want['loss']}")
+    top = max(float(g.abs().max()) for g in want["grads"].values())
+    worst, worst_k, noise = 0.0, "", 0.0
+    for k, g in want["grads"].items():
+        if float(g.abs().max()) <= DIST_TOL["grad_floor"] * top:
+            noise = max(noise, float(got["grads"][k].abs().max()) / top)
+            if noise > DIST_TOL["grad_floor"]:
+                raise AssertionError(f"{tag} {name}: vanishing gradient {k} at {noise:.3g}")
+            continue
+        rel = float((got["grads"][k] - g).norm() / g.norm())
+        if rel > worst:
+            worst, worst_k = rel, f"{k}, its largest element {float(g.abs().max()) / top:.3g} of the step's"
+        if rel > DIST_TOL["grad"]:
+            raise AssertionError(f"{tag} {name}: gradient {k} {rel:.3g} from one process")
+    lr = want["lr"]
+    p_max, flips, total = 0.0, 0, 0
+    for k, p in want["params"].items():
+        d = (got["params"][k] - p).abs()
+        p_max = max(p_max, float(d.max()))
+        flips += int((d > 0.1 * lr).sum())
+        total += d.numel()
+    if p_max > 2.004 * lr:
+        raise AssertionError(f"{tag} {name}: a parameter {p_max:.3g} from one process "
+                             f"(bound {2.004 * lr:.3g})")
+    r_max = 0.0
+    for k, v in want["running"].items():
+        if not torch.allclose(got["running"][k], v, rtol=DIST_TOL["running_rtol"],
+                              atol=DIST_TOL["running_atol"]):
+            raise AssertionError(f"{tag} {name}: running statistic {k} differs")
+        r_max = max(r_max, float((got["running"][k] - v).abs().max()))
+    return (f"{name}: loss {got['loss']:.6f} vs one process {want['loss']:.6f}; gradients "
+            f"worst tensor {worst:.3g} ({worst_k}; relative norm; whole {whole:.3g}), vanishing ones "
+            f"{noise:.3g} of the largest; parameters within {p_max:.3g} (bound "
+            f"{2.004 * lr:.3g}), {flips} of {total} elements more than lr/10 apart; running "
+            f"statistics within {r_max:.3g}; {tail}")
+
+
+def dist_ranks(tag, backend, local_ranks, ref, card):
+    """``len(local_ranks)`` rank processes (rank r on card ``local_ranks[r]``)
+    over ``backend`` run ``dist_steps``; each step is held to this process's
+    (``ref``) at ``DIST_TOL`` and the ranks to each other bit for bit."""
+    world = len(local_ranks)
+    out_dir = os.path.join(DIST_DIR, f"{backend}{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    port = _free_port()
+    t0 = time.time()
+    _run_children([(f"rank{r}_{backend}{world}",
+                    [sys.executable, os.path.abspath(__file__), "--dist-worker", "ranks",
+                     backend, out_dir],
+                    _child_env(RANK=str(r), WORLD_SIZE=str(world),
+                               LOCAL_RANK=str(local_ranks[r]), MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=port))
+                   for r in range(world)], timeout=600)
+    wall_s = time.time() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    for name in DIST_CONTINUOUS + DIST_NOISY:
+        print(f"[{tag}] {_hold_dist(tag, name, ref, ranks)}", flush=True)
+    share = ("processes time-sharing one card: not a scaling number"
+             if len(set(local_ranks)) == 1 else "one card a rank")
+    print(f"[{tag}] {world} ranks over {backend}, batches {B} and {B_PRETRAIN} at "
+          f"{B // world} and {B_PRETRAIN // world} a rank; ms/step above are rank 0's "
+          f"({share}); {wall_s:.1f} s of wall time for the ranks ({card})", flush=True)
+
+
+def phase_dist_ranks(card, device):
+    """Phase 26: ``N_RANKS`` processes share the one card over gloo (passed
+    explicitly: NCCL takes one rank a device), each with ``LOCAL_RANK`` 0
+    and half of each global batch, against this process's one-process steps
+    (``dist_steps``) at ``DIST_TOL``, the ranks equal bit for bit. Phase 27:
+    the same over NCCL on two cards, when there are two."""
+    ref = dist_steps(device)
+    dist_ranks("dist two ranks, one card", "gloo", [0] * N_RANKS, ref, card)
+    if torch.cuda.device_count() >= N_RANKS:
+        dist_ranks("dist nccl two cards", "nccl", list(range(N_RANKS)), ref, card)
+    else:
+        print(f"[dist nccl two cards] not run: {torch.cuda.device_count()} card(s) here, "
+              f"NCCL needs a card for each of the {N_RANKS} ranks ({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1620,7 +1989,7 @@ def main() -> int:
     del model
 
     # 10-11. cls train, 12. cls card vs CPU, 13. CLI
-    cls_counts = phase_cls_train(clouds, labels, config, card, device, backward_ms)
+    cls_counts, peft_ms = phase_cls_train(clouds, labels, config, card, device, backward_ms)
     phase_cls_card_vs_cpu(clouds, labels, config, card, device)
     phase_cls_cli(card)
 
@@ -1653,6 +2022,11 @@ def main() -> int:
                           tag="finetune")
     phase_two_stage_cli(card)
 
+    # 25. world of one under the launcher, 26. two ranks on one card (gloo),
+    # 27. two ranks on two cards (NCCL)
+    phase_dist_world1(card, peft_ms)
+    phase_dist_ranks(card, device)
+
     # the cls train step's forward makes the robust step's kernel calls
     kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"], B, "cls train step"),
                kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"], B, "cls train step"),
@@ -1682,4 +2056,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dist_worker(sys.argv[2:]) if sys.argv[1:2] == ["--dist-worker"] else main())

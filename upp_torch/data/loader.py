@@ -17,6 +17,19 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 
+def shard_indices(idx: np.ndarray, num_shards: int, shard_index: int) -> np.ndarray:
+    """Shard ``shard_index``'s share of ``idx``: every ``num_shards``-th
+    entry, after padding ``idx`` with its first entries to a multiple of
+    ``num_shards`` so every host sees equal batches (the padding repeats
+    samples: evaluation drops them by index)."""
+    if num_shards == 1:
+        return idx
+    n = len(idx)
+    per = -(-n // num_shards)
+    padded = np.concatenate([idx, idx[: per * num_shards - n]])
+    return padded[shard_index::num_shards]
+
+
 class BatchLoader:
     """Minimal epoch-based batch iterator.
 
@@ -55,12 +68,7 @@ class BatchLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed * 1_000_003 + self.epoch)
             rng.shuffle(idx)
-        if self.num_shards > 1:
-            # pad to a multiple of shards so every host sees equal batches
-            per = -(-n // self.num_shards)
-            padded = np.concatenate([idx, idx[: per * self.num_shards - n]])
-            idx = padded[self.shard_index::self.num_shards]
-        return idx
+        return shard_indices(idx, self.num_shards, self.shard_index)
 
     def __len__(self) -> int:
         n = len(self._indices())

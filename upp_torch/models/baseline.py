@@ -20,6 +20,7 @@ from torch import nn
 from ..ops.chamfer import chamfer_l1, chamfer_l2
 from ..ops.geometry import index_points
 from ..ops.group import group_points
+from ..parallel import shard
 from ..utils.config import to_config
 from .build import MODELS
 from .layers import Encoder, PointConv, PosEmbedMLP, layer_norm
@@ -76,7 +77,7 @@ class PointMAE(nn.Module):
         package splits it: (visible [B, G - num_mask], masked [B,
         num_mask]), in permutation order, not sorted."""
         G = self.num_group
-        perm = torch.argsort(torch.rand((B, G), generator=generator, device=device), dim=1)
+        perm = torch.argsort(shard.rand((B, G), generator=generator, device=device), dim=1)
         return perm[:, :G - self.num_mask], perm[:, G - self.num_mask:]
 
     def forward(self, pts: torch.Tensor, *, eval_features: bool = False,

@@ -10,8 +10,12 @@ Numerics as in the JAX model: LayerNorm eps 1e-6, BatchNorm eps 1e-5 with
 torch's running-statistics semantics (momentum 0.1 here is flax's 0.9;
 batch statistics in ``.train()``, the unbiased variance folded into the
 running average, as the JAX ``TorchBatchNorm`` imitates), exact GELU.
-Random draws of train mode (dropout, drop-path) come from torch's RNG on the
-tensors' device, or drop-path's from a generator the caller passes.
+Inside a train step of several ranks (``parallel.shard.global_batch``)
+every BatchNorm takes the statistics of the global batch, as the JAX jit
+step over a sharded batch does. Random draws of train mode (dropout,
+drop-path) come from the train step's generator inside ``global_batch``,
+drawn for the global batch; else from torch's RNG, or drop-path's from a
+generator the caller passes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import shard
+from ..parallel.dist import all_reduce_sum
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -35,22 +42,79 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Per-sample stochastic depth (timm DropPath): in training, each sample
     is zeroed with probability ``rate`` and the rest scaled by 1/(1-rate),
-    drawn from ``generator`` (torch's RNG when None)."""
+    drawn from ``generator``, else the train step's (torch's RNG outside
+    one)."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
-                       dtype=x.dtype).bernoulli_(keep, generator=generator)
+    mask = shard.bernoulli((x.shape[0],) + (1,) * (x.dim() - 1), keep,
+                           generator=generator if generator is not None
+                           else shard.model_generator(), device=x.device, dtype=x.dtype)
     return x / keep * mask
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask is drawn, inside a train step
+    (``shard.global_batch``), from the step's generator for the global
+    batch; from torch's RNG outside one."""
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        return x * shard.bernoulli(x.shape, keep, generator=shard.model_generator(),
+                                   device=x.device, dtype=x.dtype) / keep
 
 
 def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """Apply a BatchNorm module over the last axis of ``x`` (statistics over
-    all other axes), whatever the module's own dimensionality."""
+    all other axes), whatever the module's own dimensionality; in train
+    mode inside a train step of several ranks, with the global batch's
+    statistics (``global_batch_norm``)."""
     flat = x.reshape(-1, x.shape[-1])
-    y = F.batch_norm(flat, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                     bn.training, bn.momentum, bn.eps)
+    if bn.training and shard.current().is_global:
+        y = global_batch_norm(bn, flat)
+    else:
+        y = F.batch_norm(flat, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         bn.training, bn.momentum, bn.eps)
     return y.reshape(x.shape)
+
+
+def global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, flat: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm of this rank's rows ``flat`` [n, C] with the
+    statistics of every rank's rows (the reference's SyncBN, the JAX step's
+    global batch): the count and the sum are all-reduced for the mean, then
+    the centred sum of squares for the biased variance, which normalises
+    (two passes: a one-pass sum of squares drifts in float32). The running
+    statistics take the mean and the unbiased variance over the global
+    count, torch's semantics (``upp_tpu/models/layers.py:41``). The
+    all-reduces are differentiable: their backward sums the gradients over
+    ranks, which with the optimizer's mean over ranks gives the one-process
+    gradient."""
+    total = all_reduce_sum(torch.cat([flat.sum(0), flat.new_full((1,), flat.shape[0])]))
+    count = total[-1]
+    mean = total[:-1] / count
+    centred = flat - mean
+    var = all_reduce_sum((centred * centred).sum(0)) / count
+    y = centred * torch.rsqrt(var + bn.eps)
+    if bn.affine:
+        y = y * bn.weight + bn.bias
+    if bn.track_running_stats:
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(m * mean)
+            bn.running_var.mul_(1.0 - m).add_(m * var * (count / (count - 1.0)))
+    return y
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (same parameters, buffers and state-dict keys) on
+    channels-last input [..., C] through ``batch_norm_last``."""
+
+    def forward(self, x):
+        if self.training and self.track_running_stats:
+            self.num_batches_tracked.add_(1)
+        return batch_norm_last(self, x)
 
 
 class PointConv(nn.Module):
@@ -132,7 +196,7 @@ class Adapter(nn.Module):
         super().__init__()
         self.layer_norm = layer_norm(embed_dims)
         self.ln1 = nn.Linear(embed_dims, reduction_dims)
-        self.dropout = nn.Dropout(0.1)
+        self.dropout = Dropout(0.1)
         self.ln2 = nn.Linear(reduction_dims, embed_dims)
 
     def forward(self, x):
@@ -157,10 +221,10 @@ class Encoder(nn.Module):
         super().__init__()
         self.encoder_channel = encoder_channel
         self.first_conv = nn.Sequential(
-            PointConv(3, 128), nn.BatchNorm1d(128, eps=BN_EPS), nn.ReLU(),
+            PointConv(3, 128), BatchNorm1d(128, eps=BN_EPS), nn.ReLU(),
             PointConv(128, 256))
         self.second_conv = nn.Sequential(
-            PointConv(512, 512), nn.BatchNorm1d(512, eps=BN_EPS), nn.ReLU(),
+            PointConv(512, 512), BatchNorm1d(512, eps=BN_EPS), nn.ReLU(),
             PointConv(512, encoder_channel))
 
     def forward(self, point_groups, vis_idx: Optional[torch.Tensor] = None):

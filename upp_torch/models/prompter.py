@@ -13,7 +13,7 @@ from torch import nn
 from ..ops.geometry import index_points
 from ..ops.group import group_points
 from ..ops.propagate import inverse_distance_interp
-from .layers import BN_EPS, PointConv, batch_norm_last, positional_embedding
+from .layers import BN_EPS, Dropout, PointConv, batch_norm_last, positional_embedding
 
 
 class PointNetSetAbstraction(nn.Module):
@@ -80,7 +80,7 @@ class RectifyPrompter(nn.Module):
         skip_dim = 3 * (1 + 2 * embedding_level)
         self.propagation1 = PointNetFeaturePropagation(skip_dim + 32, (32, 32))
         self.score_head = nn.Sequential(PointConv(32, 64), nn.ReLU(),
-                                        nn.Dropout(0.2), PointConv(64, out_channels))
+                                        Dropout(0.2), PointConv(64, out_channels))
 
     def forward(self, x, center1, center1_feature):
         center2, center2_feature = self.abstraction(center1, center1_feature)

@@ -36,6 +36,8 @@ from torch import nn
 
 from ..ops.geometry import index_points
 from ..ops.propagate import inverse_distance_interp
+from ..parallel import shard
+from ..parallel.dist import all_gather_rows
 from .blocks import PrompterConfig
 from .layers import (BN_EPS, Adapter, Attention, Mlp, batch_norm_last, drop_path,
                      layer_norm)
@@ -105,7 +107,9 @@ class PromptedBlock(nn.Module):
           with ``gather_idx`` False): the kNN rows are gathered from the
           prompt-augmented body flattened to [B*(prompts+g), C] with offsets
           b*g, so sample b>0 reads the previous sample's rows. Released
-          checkpoints were trained with exactly this;
+          checkpoints were trained with exactly this. In a train step
+          spread over ranks the rows are the global batch's, so a cloud
+          reads the rows the one-process step would, on whichever rank;
         * ``gather_idx`` True (the reference's seg config): a per-sample
           gather, still indexed into the prompt-augmented body;
         * ``quirk`` False (``propagation_semantics: clean``): a per-sample
@@ -127,7 +131,13 @@ class PromptedBlock(nn.Module):
         quirk = propagation.get("quirk", True)
         if quirk and not propagation.get("gather_idx", False):
             flat = body.reshape(-1, C)
-            off = (torch.arange(B, device=x.device) * g)[:, None, None]
+            first = 0                   # this shard's first cloud in the global batch
+            sh = shard.current()
+            if self.training and sh.is_global:
+                # the flat rows span the global batch: gather every rank's
+                flat = all_gather_rows(flat)
+                first = sh.rank * B
+            off = ((torch.arange(B, device=x.device) + first) * g)[:, None, None]
             neigh = flat[(n_idx + off).reshape(-1)].reshape(B, g2, k, C)
             centers = flat[(c_idx + off[:, :, 0]).reshape(-1)].reshape(B, g2, C)
         else:

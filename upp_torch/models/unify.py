@@ -26,7 +26,8 @@ from ..ops.propagate import propagate
 from ..utils.config import to_config
 from .blocks import PrompterConfig
 from .build import MODELS
-from .layers import BN_EPS, Encoder, PointConv, PosEmbedMLP, TwoLayerHead, layer_norm
+from .layers import (BN_EPS, BatchNorm1d, Dropout, Encoder, PointConv, PosEmbedMLP,
+                     TwoLayerHead, layer_norm)
 from .prompter import RectifyPrompter
 from .scan_blocks import ScannedDecoderStack, ScannedEncoderStack
 
@@ -37,10 +38,10 @@ class ClsHead(nn.Sequential):
 
     def __init__(self, in_dim: int, cls_dim: int):
         super().__init__(
-            nn.Linear(in_dim, 256), nn.BatchNorm1d(256, eps=BN_EPS), nn.ReLU(),
-            nn.Dropout(0.5),
-            nn.Linear(256, 256), nn.BatchNorm1d(256, eps=BN_EPS), nn.ReLU(),
-            nn.Dropout(0.5),
+            nn.Linear(in_dim, 256), BatchNorm1d(256, eps=BN_EPS), nn.ReLU(),
+            Dropout(0.5),
+            nn.Linear(256, 256), BatchNorm1d(256, eps=BN_EPS), nn.ReLU(),
+            Dropout(0.5),
             nn.Linear(256, cls_dim))
 
 

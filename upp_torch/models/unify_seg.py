@@ -24,7 +24,7 @@ from ..ops.fps import fps
 from ..ops.group import group_points
 from ..utils.config import to_config
 from .build import MODELS
-from .layers import BN_EPS, Encoder, PointConv, PosEmbedMLP, batch_norm_last
+from .layers import BN_EPS, Dropout, Encoder, PointConv, PosEmbedMLP, batch_norm_last
 from .prompter import PointNetFeaturePropagation
 from .scan_blocks import ScannedEncoderStack
 from .unify import _UnifyCore
@@ -80,7 +80,7 @@ class SegHead(nn.Sequential):
     def __init__(self, in_glob: int, cls_dim: int, in_pp: int = PROP_MLP[-1]):
         super().__init__(
             SplitConv(in_pp, in_glob, 512), nn.BatchNorm1d(512, eps=BN_EPS), nn.ReLU(),
-            nn.Dropout(0.5),
+            Dropout(0.5),
             PointConv(512, 256), nn.BatchNorm1d(256, eps=BN_EPS), nn.ReLU(),
             PointConv(256, cls_dim))
 

@@ -5,7 +5,11 @@ dropout, horizontal flip), unit-sphere normalisation.
 
 Each random op takes a ``torch.Generator`` on its tensors' device, or the
 draws themselves, so a test can feed both packages the same numbers (JAX's
-threefry and torch's Philox give different numbers from the same seed).
+threefry and torch's Philox give different numbers from the same seed). A
+per-cloud draw is made through ``parallel.shard``: inside a train step of
+several ranks, for the global batch, of which this rank keeps its rows; the
+draws the batch shares (the lidar indices and factors) are the same on
+every rank.
 Variable-size crops are static-shape masked ops: the crop/partial split is a
 mask from a distance threshold, and masked FPS with an explicit start
 resamples each side to a fixed size; the raw crop (no resampling) is a
@@ -18,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel import shard
 from .fps import fps
 
 
@@ -30,7 +35,7 @@ def gaussian_shell_noise(shape: Tuple[int, ...], loc: float = 0.0,
     pushed radially outward by ``shell_radius``. ``normal`` are the standard
     normal draws of ``shape``; without them they come from ``generator``."""
     if normal is None:
-        normal = torch.randn(shape, generator=generator, device=device)
+        normal = shard.randn(shape, generator=generator, device=device)
     g = loc + scale * normal
     direction = g / torch.linalg.norm(g, dim=-1, keepdim=True)
     return g + direction * shell_radius
@@ -57,7 +62,7 @@ def _viewpoints(B: int, viewpoint, generator, device) -> torch.Tensor:
     unit vectors (``misc.seprate_point_cloud``'s F.normalize(randn))."""
     if viewpoint is not None:
         return viewpoint.to(device=device, dtype=torch.float32).expand(B, 3)
-    v = torch.randn((B, 3), generator=generator, device=device)
+    v = shard.randn((B, 3), generator=generator, device=device)
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
@@ -135,10 +140,10 @@ def scale_translate(pc: torch.Tensor, scale_low: float = 2.0 / 3.0,
     """Per-sample anisotropic scale [B, 1, 3] and translate [B, 1, 3]."""
     B = pc.shape[0]
     if scale is None:
-        scale = scale_low + (scale_high - scale_low) * torch.rand(
+        scale = scale_low + (scale_high - scale_low) * shard.rand(
             (B, 1, 3), generator=generator, device=pc.device)
     if shift is None:
-        shift = translate_range * (2.0 * torch.rand(
+        shift = translate_range * (2.0 * shard.rand(
             (B, 1, 3), generator=generator, device=pc.device) - 1.0)
     return pc * scale + shift
 
@@ -150,7 +155,7 @@ def rotate_y(pc: torch.Tensor, *, generator: Optional[torch.Generator] = None,
     elementwise products and sums, so no TF32 matrix product can reach it
     (the JAX package computes it in full float32)."""
     if theta is None:
-        theta = torch.pi * (2.0 * torch.rand((pc.shape[0],), generator=generator,
+        theta = torch.pi * (2.0 * shard.rand((pc.shape[0],), generator=generator,
                                              device=pc.device) - 1.0)
     c, s = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
@@ -163,7 +168,7 @@ def jitter(pc: torch.Tensor, std: float = 0.01, clip: float = 0.03, *,
     """Clipped Gaussian jitter; ``normal`` are the standard normal draws
     [B, N, 3]."""
     if normal is None:
-        normal = torch.randn(pc.shape, generator=generator, device=pc.device)
+        normal = shard.randn(pc.shape, generator=generator, device=pc.device)
     return pc + (std * normal).clamp(-clip, clip)
 
 
@@ -173,7 +178,7 @@ def pointcloud_scale(pc: torch.Tensor, scale_low: float = 2.0 / 3.0,
                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample anisotropic scale [B, 1, 3] only."""
     if scale is None:
-        scale = scale_low + (scale_high - scale_low) * torch.rand(
+        scale = scale_low + (scale_high - scale_low) * shard.rand(
             (pc.shape[0], 1, 3), generator=generator, device=pc.device)
     return pc * scale
 
@@ -183,7 +188,7 @@ def pointcloud_translate(pc: torch.Tensor, translate_range: float = 0.2, *,
                          shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample translate [B, 1, 3] only."""
     if shift is None:
-        shift = translate_range * (2.0 * torch.rand(
+        shift = translate_range * (2.0 * shard.rand(
             (pc.shape[0], 1, 3), generator=generator, device=pc.device) - 1.0)
     return pc + shift
 
@@ -197,9 +202,9 @@ def random_input_dropout(pc: torch.Tensor, max_dropout_ratio: float = 0.5, *,
     reference's replacement rule, shapes kept)."""
     B, N, _ = pc.shape
     if ratio is None:
-        ratio = max_dropout_ratio * torch.rand((B, 1), generator=generator, device=pc.device)
+        ratio = max_dropout_ratio * shard.rand((B, 1), generator=generator, device=pc.device)
     if u is None:
-        u = torch.rand((B, N), generator=generator, device=pc.device)
+        u = shard.rand((B, N), generator=generator, device=pc.device)
     return torch.where((u <= ratio)[..., None], pc[:, :1], pc)
 
 
@@ -215,9 +220,9 @@ def random_horizontal_flip(pc: torch.Tensor, upright_axis: str = "z",
     up = {"x": 0, "y": 1, "z": 2}[upright_axis.lower()]
     B = pc.shape[0]
     if apply is None:
-        apply = torch.rand((B, 1), generator=generator, device=pc.device)
+        apply = shard.rand((B, 1), generator=generator, device=pc.device)
     if axis is None:
-        axis = torch.rand((B, 3), generator=generator, device=pc.device)
+        axis = shard.rand((B, 3), generator=generator, device=pc.device)
     do = (apply < p_apply) & (axis < p_axis)
     do[:, up] = False
     cmax = pc.amax(1, keepdim=True)

@@ -4,8 +4,11 @@ reference ``tools/builder.py:91-163``).
 ``<experiment_path>/<prefix>.pth`` holds the reference layout
 ``{base_model, optimizer, epoch, metrics}``: the model's state dict (the
 reference ``.pth`` keys), the optimizer's state dict, the epoch just
-finished and the metric dict. Written synchronously by one process, through
-a temporary file and a rename, so a crash never leaves a torn checkpoint.
+finished and the metric dict. Written synchronously by one process (rank 0
+of several), through a temporary file and a rename, so a crash never leaves
+a torn checkpoint. Every rank loads it whole: a checkpoint of N ranks is a
+one-process checkpoint (the model unwrapped, no ``module.`` prefix), and
+loads into any number of ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.dist import barrier, get_dist_info
 from ..utils.logger import print_log
 
 
@@ -26,14 +30,19 @@ def checkpoint_path(experiment_path: str, prefix: str) -> str:
 def save_checkpoint(model: nn.Module, optimizer, epoch: int, prefix: str,
                     experiment_path: str, metrics: Optional[Dict] = None,
                     logger=None) -> str:
+    """Write the checkpoint (rank 0; every rank holds the same state), then
+    wait for every rank, so none reads it before it is whole. Every rank
+    calls it at the same points of the run."""
     path = checkpoint_path(experiment_path, prefix)
-    os.makedirs(experiment_path, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"base_model": model.state_dict(),
-                "optimizer": optimizer.state_dict(),
-                "epoch": int(epoch), "metrics": dict(metrics or {})}, tmp)
-    os.replace(tmp, path)
-    print_log(f"Save checkpoint at {path}", logger=logger)
+    if get_dist_info()[0] == 0:
+        os.makedirs(experiment_path, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"base_model": model.state_dict(),
+                    "optimizer": optimizer.state_dict(),
+                    "epoch": int(epoch), "metrics": dict(metrics or {})}, tmp)
+        os.replace(tmp, path)
+        print_log(f"Save checkpoint at {path}", logger=logger)
+    barrier()
     return path
 
 

@@ -29,6 +29,11 @@
   difference is accepted: the reference's in-place ``requires_grad`` flip
   sums as the port does, and every shipped config sets
   ``step_per_update: 1``.
+* Over several ranks each real step first averages the gradients over
+  ranks (one all-reduce of the parameters that are trainable now, so a
+  joint switch needs no re-wrap, as ``DistributedDataParallel``'s fixed
+  buckets would), then clips: the clip sees the global gradient, as the
+  JAX step's.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ..parallel.dist import average_gradients
 
 
 def peft_detect(name: str, targets: Iterable[str]) -> bool:
@@ -102,8 +109,9 @@ class ScheduledOptimizer:
     parameters that have a gradient (the trainable ones), as
     ``clip_grad_norm_`` sees only those in the reference; with
     ``accumulate`` k > 1 only every k-th ``step`` call steps, on the summed
-    gradients of the calls since the last. ``calls`` counts every ``step``
-    call, as the JAX package's ``TrainState.step`` does."""
+    gradients of the calls since the last, averaged over ranks. ``calls``
+    counts every ``step`` call, as the JAX package's ``TrainState.step``
+    does."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  sched: Callable[[int], float], clip: Optional[float] = None,
@@ -140,6 +148,7 @@ class ScheduledOptimizer:
                     p.grad = None
                 elif p.grad is not None:
                     params.append(p)
+        average_gradients(params)
         if self.clip is not None:
             torch.nn.utils.clip_grad_norm_(params, self.clip)
         self.optimizer.step()

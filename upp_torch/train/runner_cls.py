@@ -4,6 +4,11 @@ training with the joint-optimization switch (``run_net``), full fine-tuning
 (``finetune_run_net``), evaluation (``make_eval_step``, ``validate``,
 ``test_net``) and the 10-vote test (``test_vote``); and the set-up the
 runners share (``init_model`` with ``--ckpts``, ``build_loaders``).
+Over several ranks (``--launcher pytorch``) each rank trains on its shard of
+every batch (``parallel.shard``) and evaluates its shard of the set; the
+per-sample results are gathered and the loader's padding duplicates dropped
+(``parallel.dist.gather_samples``), so every rank holds the one-process
+metrics; rank 0 alone writes checkpoints and metrics.
 
 One train step: crop 8192→1024 (+48 lidar, +24 shell points), the config's
 augmentation, ``PointMAEUnify`` in train mode through its three passes,
@@ -24,6 +29,8 @@ from ..data import BatchLoader, build_dataset_from_cfg
 from ..models import MODELS, build_model_from_cfg
 from ..ops.corrupt import normalize_unit_sphere, scale_translate
 from ..ops.fps import fps
+from ..parallel import shard
+from ..parallel.dist import gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .ckpt_io import load_weights
@@ -42,18 +49,25 @@ JOINT_PEFT_LIST = ["downstream_adapter", "downstream_adapter1",
                    "mask_token_generator"]
 
 
+def sharded_loader(dataset, batch_size: int, **kw) -> BatchLoader:
+    """A ``BatchLoader`` over this rank's shard of ``dataset``
+    (``upp_tpu/train/runner_cls.py:51-57``); the whole set in one process."""
+    rank, world = get_dist_info()
+    return BatchLoader(dataset, int(batch_size), num_shards=world, shard_index=rank, **kw)
+
+
 def build_loaders(args, config):
     """(train loader: shuffled per epoch from ``args.seed``, full batches
-    only; val loader: in order, every sample), single process."""
+    only; val loader: in order, every sample), each over this rank's
+    shard."""
     train_ds = build_dataset_from_cfg(config.dataset.train._base_,
                                       config.dataset.train.others)
     val_ds = build_dataset_from_cfg(config.dataset.val._base_,
                                     config.dataset.val.others)
-    train_loader = BatchLoader(train_ds, config.dataset.train.others.bs,
-                               shuffle=True, drop_last=True,
-                               seed=int(getattr(args, "seed", 0)))
-    val_loader = BatchLoader(val_ds, config.dataset.val.others.bs,
-                             shuffle=False, drop_last=False)
+    train_loader = sharded_loader(train_ds, config.dataset.train.others.bs,
+                                  shuffle=True, drop_last=True,
+                                  seed=int(getattr(args, "seed", 0)))
+    val_loader = sharded_loader(val_ds, config.dataset.val.others.bs)
     return train_loader, val_loader
 
 
@@ -84,7 +98,10 @@ def make_train_step(model, optimizer, config, args):
     ``upp_tpu/train/runner_cls.py:86-126``; the draws come, unless given,
     from a device generator seeded from ``args.seed + 777`` and the
     optimizer's count of calls, as JAX folds ``state.step`` into its key,
-    so a resumed run draws what the uninterrupted run would have."""
+    so a resumed run draws what the uninterrupted run would have; dropout
+    and drop-path too. Over several ranks ``pts`` is this rank's shard of
+    the global batch (``parallel.shard.global_batch``) and the returned
+    loss and accuracy are the global batch's."""
     noisy_train = bool(config.get("noisy_train", False))
     npoints = int(config.npoints)
     augmentation = config.get("data_augmentation", None)
@@ -103,14 +120,16 @@ def make_train_step(model, optimizer, config, args):
                    draws: Optional[CorruptDraws] = None):
         gen = step_generator(gens, pts.device, seed, optimizer.calls)
         model.train()
-        points = corrupt_batch(pts, **corrupt_kw, generator=gen, draws=draws)
-        logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
-                       point_num=npoints)
+        with shard.global_batch(shard.this_rank(), gen):
+            points = corrupt_batch(pts, **corrupt_kw, generator=gen, draws=draws)
+            logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
+                           point_num=npoints)
         loss, acc = cross_entropy_loss_acc(logits, label)
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]))
+        return {"loss": loss, "acc": acc}
 
     return train_step
 
@@ -136,21 +155,24 @@ def make_eval_step(model, config, args):
     return eval_step
 
 
-def _accuracy(preds, labels) -> float:
+def _accuracy(preds, labels, idxs) -> float:
+    """Accuracy (%) over every rank's samples, each once."""
     hit = (torch.cat(preds).cpu().numpy() == np.concatenate(labels)) if preds \
         else np.zeros((0,), bool)
+    _, (hit,) = gather_samples(np.concatenate(idxs) if idxs else [], hit)
     return float(hit.mean() * 100.0) if hit.size else 0.0
 
 
 def validate(eval_step, loader, device: torch.device, epoch: int,
              logger=None) -> AccMetric:
-    """Accuracy (%) of ``eval_step`` over ``loader`` (single process); the
-    predictions are fetched once, after the sweep."""
-    preds, labels = [], []
-    for pts, label in loader:
+    """Accuracy (%) of ``eval_step`` over ``loader``, over every rank's
+    shard; the predictions are fetched once, after the sweep."""
+    preds, labels, idxs = [], [], []
+    for idx, (pts, label) in loader.iter_indexed():
         preds.append(eval_step(torch.from_numpy(pts).to(device)))
         labels.append(np.asarray(label))
-    acc = _accuracy(preds, labels)
+        idxs.append(idx)
+    acc = _accuracy(preds, labels, idxs)
     print_log(f"[Validation] EPOCH: {epoch}  acc = {acc:.4f}", logger=logger)
     return AccMetric(acc)
 
@@ -270,14 +292,20 @@ def test_vote(model, loader, config, args, device: torch.device, times: int = 10
     points, keeps a random 1024 of their columns and scale-translates them,
     then runs the downstream pass alone (no prompters). The votes' draws
     (``choice``, ``aug_scale``, ``aug_shift``, one per vote in order) come
-    from ``draws`` or a device generator seeded from ``args.seed + 4242``."""
+    from ``draws`` or a device generator seeded from ``args.seed + 4242``,
+    each per-cloud draw made for a whole one-process batch (the loader's
+    batch size times the ranks), of which this rank's batch holds every
+    world-th row (``parallel.shard.Shard(strided=True)``): the ranks vote as
+    one process does."""
     npoints = int(config.npoints)
     gen = torch.Generator(device).manual_seed(int(getattr(args, "seed", 0)) + 4242)
     draws = iter(draws) if draws is not None else None
+    rank, world = get_dist_info()
+    rows = shard.Shard(rank, world, strided=True, rows=loader.batch_size * world)
     model.eval()
-    preds, labels = [], []
-    with torch.inference_mode():
-        for pts, label in loader:
+    preds, labels, idxs = [], [], []
+    with torch.inference_mode(), shard.global_batch(rows):
+        for idx, (pts, label) in loader.iter_indexed():
             pts = torch.from_numpy(pts).to(device)
             logits = 0.0
             for _ in range(times):
@@ -288,7 +316,8 @@ def test_vote(model, loader, config, args, device: torch.device, times: int = 10
                 logits = logits + model(points)
             preds.append(logits.argmax(-1))
             labels.append(np.asarray(label))
-    return _accuracy(preds, labels)
+            idxs.append(idx)
+    return _accuracy(preds, labels, idxs)
 
 
 def test_net(args, config) -> float:
@@ -300,7 +329,7 @@ def test_net(args, config) -> float:
     logger = get_logger(getattr(args, "log_name", "upp_torch"))
     test_ds = build_dataset_from_cfg(config.dataset.test._base_,
                                      config.dataset.test.others)
-    loader = BatchLoader(test_ds, config.dataset.test.others.bs)
+    loader = sharded_loader(test_ds, config.dataset.test.others.bs)
     model = init_model(args, config, device, logger=logger)
     eval_step = make_eval_step(model, config, args)
     metrics = validate(eval_step, loader, device, 0, logger=logger)

@@ -6,7 +6,10 @@ losses on cropped, noised clouds. One step: augment (the config's
 ``data_augmentation``) → viewpoint crop at a random ratio, both halves kept
 → shell noise, then lidar noise drawn from the cloud that already holds it
 → model → three CD-L1 terms plus the noise loss → AdamW. At epoch 20 the
-rectify set is frozen (stage 2); the optimizer's state carries over.
+rectify set is frozen (stage 2); the optimizer's state carries over. Over
+several ranks each trains on its shard of every batch (``parallel.shard``)
+and validates its shard of the set, the per-sample rows gathered and the
+padding duplicates dropped (``upp_tpu/train/runner_pretask.py:199-280``).
 """
 
 from __future__ import annotations
@@ -20,10 +23,13 @@ import torch
 
 from .. import resolve_device
 from ..data import build_dataset_from_cfg
+from ..data.loader import shard_indices
 from ..ops.chamfer import chamfer_l1, chamfer_l1_per_sample, chamfer_l2_per_sample
 from ..ops.corrupt import (gaussian_shell_noise, lidar_noise, partial_point_cloud,
                            separate_point_cloud)
 from ..ops.fps import fps
+from ..parallel import shard
+from ..parallel.dist import gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, CDMetric, Metrics, completion_metrics
@@ -77,7 +83,9 @@ def make_pretask_train_step(model, optimizer, config, args):
     terms (x1000, recall x100) as 0-d tensors on gt's device, unsynced.
     Follows ``upp_tpu/train/runner_pretask.py:71-125``. The draws come,
     unless given, from generators seeded from ``args.seed + 777`` and the
-    optimizer's count of calls (``optim.step_generator``)."""
+    optimizer's count of calls (``optim.step_generator``), dropout and
+    drop-path too; over several ranks drawn for the global batch, whose loss
+    terms it returns (``parallel.shard``)."""
     npoints = int(config.npoints)
     n_pts_ds = int(config.dataset.train._base_.N_POINTS)
     augment = resolve_augmentation(config.get("data_augmentation", None))
@@ -92,34 +100,35 @@ def make_pretask_train_step(model, optimizer, config, args):
         host_gen = step_generator(host_gens, torch.device("cpu"), seed, optimizer.calls)
         gen = step_generator(gens, gt.device, seed, optimizer.calls)
         model.train()
-        if augment is not None:
-            gt = augment(gt, gen, dr)
-        num_crop = dr.num_crop
-        if num_crop is None:
-            num_crop = int(torch.randint(crop_lo, crop_hi + 1, (), generator=host_gen))
-        partial, cropping = separate_point_cloud(gt, num_crop, sample_points=npoints,
-                                                 viewpoint=dr.viewpoints, generator=gen)
-        points = partial
-        if add_noise:
-            if "gaussian_noise" in noise_types:
-                u = dr.shell_u
-                if u is None:
-                    u = float(torch.rand((), generator=host_gen))
-                shell = gaussian_shell_noise(
-                    (gt.shape[0], GAUSSIAN_NUM, 3), loc=0.0, scale=0.2,
-                    shell_radius=(u + 2.0) / 3.0, generator=gen,
-                    normal=dr.shell_normal, device=gt.device)
-                points = torch.cat([points, shell], dim=1)
-            if "lidar_noise" in noise_types:
-                lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
-                                    idx=dr.lidar_idx, factor=dr.lidar_factor)
-                points = torch.cat([points, lidar], dim=1)
+        with shard.global_batch(shard.this_rank(), gen):
+            if augment is not None:
+                gt = augment(gt, gen, dr)
+            num_crop = dr.num_crop
+            if num_crop is None:
+                num_crop = int(torch.randint(crop_lo, crop_hi + 1, (), generator=host_gen))
+            partial, cropping = separate_point_cloud(gt, num_crop, sample_points=npoints,
+                                                     viewpoint=dr.viewpoints, generator=gen)
+            points = partial
+            if add_noise:
+                if "gaussian_noise" in noise_types:
+                    u = dr.shell_u
+                    if u is None:
+                        u = float(torch.rand((), generator=host_gen))
+                    shell = gaussian_shell_noise(
+                        (gt.shape[0], GAUSSIAN_NUM, 3), loc=0.0, scale=0.2,
+                        shell_radius=(u + 2.0) / 3.0, generator=gen,
+                        normal=dr.shell_normal, device=gt.device)
+                    points = torch.cat([points, shell], dim=1)
+                if "lidar_noise" in noise_types:
+                    lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
+                                        idx=dr.lidar_idx, factor=dr.lidar_factor)
+                    points = torch.cat([points, lidar], dim=1)
 
-        out = model(points, point_num=npoints, train_with_gaussian=add_noise)
-        if add_noise:
-            predict_center, rebuild, noise_loss, recall = out
-        else:
-            (predict_center, rebuild), noise_loss, recall = out, gt.new_zeros(()), gt.new_ones(())
+            out = model(points, point_num=npoints, train_with_gaussian=add_noise)
+            if add_noise:
+                predict_center, rebuild, noise_loss, recall = out
+            else:
+                (predict_center, rebuild), noise_loss, recall = out, gt.new_zeros(()), gt.new_ones(())
         # loss terms (runner_pretask.py:217-225)
         cropping_coarse = chamfer_l1(predict_center, cropping)
         cropping_dense = chamfer_l1(rebuild, cropping)
@@ -128,9 +137,10 @@ def make_pretask_train_step(model, optimizer, config, args):
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        terms = (cropping_coarse * 1000, cropping_dense * 1000, dense * 1000,
-                 noise_loss * 1000, recall * 100)
-        return {k: v.detach() for k, v in zip(LOSS_NAMES, terms)}
+        terms = reduce_mean(torch.stack([cropping_coarse * 1000, cropping_dense * 1000,
+                                         dense * 1000, noise_loss * 1000,
+                                         recall * 100]).detach())
+        return dict(zip(LOSS_NAMES, terms))
 
     return train_step
 
@@ -167,13 +177,19 @@ CD_NAMES = ["sparse_l1", "sparse_l2", "dense_l1", "dense_l2"]
 
 
 def validate(eval_step, loader, device: torch.device, epoch: int, logger=None) -> CDMetric:
-    """CD meters over ``loader`` from the first viewpoint; the per-sample
-    vectors are fetched once, after the sweep."""
+    """CD meters over ``loader`` from the first viewpoint, over every rank's
+    samples, each once; the per-sample vectors are fetched once, after the
+    sweep."""
     meters = AverageMeter(CD_NAMES)
     vp = torch.tensor(VIEWPOINTS_8[0], dtype=torch.float32)
-    pending = [eval_step(torch.from_numpy(batch[0]).to(device), vp) for batch in loader]
-    for m in pending:
-        meters.update_vectors([m[c].cpu().numpy() for c in CD_NAMES])
+    idxs, pending = [], []
+    for idx, batch in loader.iter_indexed():
+        idxs.append(idx)
+        pending.append(eval_step(torch.from_numpy(batch[0]).to(device), vp))
+    cds = np.concatenate([torch.stack([m[c] for c in CD_NAMES], 1).cpu().numpy()
+                          for m in pending]) if pending else np.zeros((0, len(CD_NAMES)))
+    _, (cds,) = gather_samples(np.concatenate(idxs) if idxs else [], cds)
+    meters.update_vectors(list(cds.T))
     print_log("[Epoch %d] validate dense Chamfer Distance L2: %.5f"
               % (epoch, meters.avg(3)), logger=logger)
     return CDMetric(meters.avg(3))
@@ -183,18 +199,33 @@ def validate_detailed(eval_step, dataset, device: torch.device, epoch: int,
                       logger=None) -> CDMetric:
     """One sample at a time, 8 viewpoints each: the CD meters and the
     per-taxonomy Metrics table with its Overall row, the reference's TEST
-    RESULTS report (``tools/runner_pretask.py:385-447``)."""
-    meters = AverageMeter(CD_NAMES)
-    category_metrics: dict = {}
-    for i in range(len(dataset)):
+    RESULTS report (``tools/runner_pretask.py:385-447``). Each rank
+    evaluates its shard of the samples; the rows are gathered, the padding
+    duplicates dropped, and the meters filled in sample order, as one
+    process fills them."""
+    names = CD_NAMES + Metrics.names()
+    rank, world = get_dist_info()
+    idxs, taxonomies, rows = [], [], []
+    for i in shard_indices(np.arange(len(dataset)), world, rank):
         taxonomy_id, _, payload = dataset[i]
         gt = torch.from_numpy(np.asarray(payload[0], np.float32))[None].to(device)
+        per_vp = []
         for vp in VIEWPOINTS_8:
             m = eval_step(gt, torch.tensor(vp, dtype=torch.float32))
-            meters.update([float(m[c].mean()) for c in CD_NAMES])
+            per_vp.append([float(m[c].mean()) for c in names])
+        idxs.append(i)
+        taxonomies.append(str(taxonomy_id))
+        rows.append(per_vp)
+    _, (taxonomies, rows) = gather_samples(
+        idxs, np.asarray(taxonomies, dtype=object),
+        np.asarray(rows, np.float64).reshape(-1, len(VIEWPOINTS_8), len(names)))
+    meters = AverageMeter(CD_NAMES)
+    category_metrics: dict = {}
+    for taxonomy_id, per_vp in zip(taxonomies, rows):
+        for vals in per_vp:
+            meters.update(list(vals[:len(CD_NAMES)]))
             category_metrics.setdefault(
-                str(taxonomy_id), AverageMeter(Metrics.names())).update(
-                    [float(m[c]) for c in Metrics.names()])
+                taxonomy_id, AverageMeter(Metrics.names())).update(list(vals[len(CD_NAMES):]))
     _print_metrics_table(category_metrics, logger)
     print_log("[Epoch %d] validate dense Chamfer Distance L2: %.5f"
               % (epoch, meters.avg(3)), logger=logger)

@@ -5,7 +5,10 @@ One step: FPS to ``npoints``, the config's augmentation, ``Point_MAE`` in
 train mode (a random 60% of the groups masked, the Chamfer loss of their
 rebuild), backward, AdamW over every parameter. Validation is the linear
 SVM probe over the encoder's features (``svm_probe``), when the config has
-an ``extra_train`` and a ``val`` split.
+an ``extra_train`` and a ``val`` split. Over several ranks each trains on
+its shard of every batch (``parallel.shard``); the probe's features are
+gathered from every rank before the fit, as
+``upp_tpu/train/runner_pretrain.py:59-103`` gathers them.
 """
 
 from __future__ import annotations
@@ -18,14 +21,16 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data import BatchLoader, build_dataset_from_cfg
+from ..data import build_dataset_from_cfg
 from ..ops.fps import fps
+from ..parallel import shard
+from ..parallel.dist import broadcast_object, gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AccMetric, AverageMeter
 from .optim import build_optimizer, count_params, step_generator
 from .pipeline import AugmentDraws, resolve_augmentation
-from .runner_cls import init_model
+from .runner_cls import init_model, sharded_loader
 
 
 def make_pretrain_step(model, optimizer, config, args):
@@ -34,7 +39,9 @@ def make_pretrain_step(model, optimizer, config, args):
     The augmentation draws, the group mask and drop-path come, unless
     given (``draws``: ``AugmentDraws``; ``masks``: (visible, masked) group
     indices), from a device generator seeded from ``args.seed + 777`` and
-    the optimizer's count of calls (``optim.step_generator``)."""
+    the optimizer's count of calls (``optim.step_generator``); over several
+    ranks drawn for the global batch, whose loss it returns
+    (``parallel.shard``)."""
     npoints = int(config.npoints)
     augment = resolve_augmentation(config.get("data_augmentation", "scale-translate"))
     seed = int(getattr(args, "seed", 0)) + 777
@@ -44,14 +51,15 @@ def make_pretrain_step(model, optimizer, config, args):
                    masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         gen = step_generator(gens, pts.device, seed, optimizer.calls)
         model.train()
-        points, _ = fps(pts, npoints)
-        if augment is not None:
-            points = augment(points, gen, draws)
-        loss = model(points, masks=masks, generator=gen)
+        with shard.global_batch(shard.this_rank(), gen):
+            points, _ = fps(pts, npoints)
+            if augment is not None:
+                points = augment(points, gen, draws)
+            loss = model(points, masks=masks, generator=gen)
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return {"loss": loss.detach()}
+        return {"loss": reduce_mean(loss.detach())}
 
     return train_step
 
@@ -59,29 +67,38 @@ def make_pretrain_step(model, optimizer, config, args):
 @torch.inference_mode()
 def probe_features(model, loader, npoints: int, device: torch.device
                    ) -> Tuple[np.ndarray, np.ndarray]:
-    """(features [n, trans_dim], labels [n]) of every cloud of ``loader``:
-    FPS to ``npoints``, then ``Point_MAE``'s eval features on running
-    BatchNorm statistics; fetched once, after the sweep."""
+    """(features [n, trans_dim], labels [n]) of every cloud of ``loader``
+    on every rank, each once, in index order: FPS to ``npoints``, then
+    ``Point_MAE``'s eval features on running BatchNorm statistics; fetched
+    once, after the sweep, then gathered."""
     model.eval()
-    feats, labels = [], []
-    for pts, label in loader:
+    feats, labels, idxs = [], [], []
+    for idx, (pts, label) in loader.iter_indexed():
         points, _ = fps(torch.from_numpy(pts).to(device), npoints)
         feats.append(model(points, eval_features=True))
         labels.append(np.asarray(label))
-    return (torch.cat(feats).cpu().numpy(), np.concatenate(labels))
+        idxs.append(idx)
+    _, (feats, labels) = gather_samples(np.concatenate(idxs), torch.cat(feats).cpu().numpy(),
+                                        np.concatenate(labels))
+    return feats, labels
 
 
 def svm_probe(model, train_loader, val_loader, npoints: int, device: torch.device,
               logger=None) -> float:
     """Accuracy (%) on ``val_loader`` of a linear SVM fitted to the frozen
     encoder's features of ``train_loader`` (``runner_pretrain.py:203-262``),
-    single process. Needs scikit-learn, imported here, as in JAX."""
-    from sklearn.svm import LinearSVC
+    both gathered from every rank; rank 0 fits, and every rank returns its
+    accuracy (the fit draws from numpy's global RNG, which ranks need not
+    share). Needs scikit-learn, imported here, as in JAX."""
     x_tr, y_tr = probe_features(model, train_loader, npoints, device)
     x_te, y_te = probe_features(model, val_loader, npoints, device)
-    clf = LinearSVC(max_iter=2000)
-    clf.fit(x_tr, y_tr)
-    acc = float((clf.predict(x_te) == y_te).mean() * 100.0)
+    acc = None
+    if get_dist_info()[0] == 0:
+        from sklearn.svm import LinearSVC
+        clf = LinearSVC(max_iter=2000)
+        clf.fit(x_tr, y_tr)
+        acc = float((clf.predict(x_te) == y_te).mean() * 100.0)
+    acc = broadcast_object(acc)
     print_log(f"[SVM probe] acc = {acc:.4f}", logger=logger)
     return acc
 
@@ -94,23 +111,24 @@ def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     ``ckpt-best`` on the probe's accuracy, ``ckpt-last`` every epoch and
     ``ckpt-epoch-XXX`` every 25 epochs from 250; a warm start from
     ``--start_ckpts`` (or ``--ckpts``) unless ``--resume``. The loss is
-    fetched once per epoch. ``fsdp`` has no effect on one card, as in JAX
-    on one device. The writers get the epoch's mean loss x1000
+    fetched once per epoch. ``fsdp`` has no effect: over several ranks
+    every rank holds the whole model and optimizer state (the same step as
+    JAX's ZeRO-3 sharding, without its memory saving). The writers get the epoch's mean loss x1000
     (``Loss/Epoch/Loss_1``), its learning rate and the probe accuracy.
     Returns the best probe accuracy."""
     device = resolve_device(getattr(args, "device", None))
     logger = get_logger(getattr(args, "log_name", "upp_torch"))
     seed = int(getattr(args, "seed", 0))
     train_cfg = config.dataset.train
-    train_loader = BatchLoader(build_dataset_from_cfg(train_cfg._base_, train_cfg.others),
-                               int(train_cfg.others.bs), shuffle=True, drop_last=True,
-                               seed=seed)
+    train_loader = sharded_loader(build_dataset_from_cfg(train_cfg._base_, train_cfg.others),
+                                  train_cfg.others.bs, shuffle=True, drop_last=True,
+                                  seed=seed)
     extra_loader = val_loader = None
     if config.dataset.get("extra_train") and config.dataset.get("val"):
         extra_loader, val_loader = (
-            BatchLoader(build_dataset_from_cfg(config.dataset[s]._base_,
-                                               config.dataset[s].others),
-                        int(config.dataset[s].others.bs))
+            sharded_loader(build_dataset_from_cfg(config.dataset[s]._base_,
+                                                  config.dataset[s].others),
+                           config.dataset[s].others.bs)
             for s in ("extra_train", "val"))
 
     resume = bool(getattr(args, "resume", False))

@@ -3,8 +3,10 @@ reference ``tools/runner_unify_seg.py`` and ``tools/runner_finetune_seg.py``):
 ShapeNetPart training with one-hot category conditioning, the UPP train
 step's raw 25% viewpoint crop (kept at its size), +24 shell and +64 lidar
 points, NLL over per-point log-probabilities, and the accuracy / class-avg /
-instance-avg mIoU validation. Single process (the JAX runner's multi-host
-gather is not ported).
+instance-avg mIoU validation. Over several ranks each trains on its shard
+of every batch and validates its shard of the set; the per-sample
+predictions are gathered and the padding duplicates dropped
+(``upp_tpu/train/runner_seg.py:112-182``).
 """
 
 from __future__ import annotations
@@ -17,15 +19,17 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..data import BatchLoader, build_dataset_from_cfg
+from ..data import build_dataset_from_cfg
 from ..data.partnormal import SEG_CLASSES
 from ..ops.corrupt import gaussian_shell_noise, lidar_noise, separate_point_cloud
+from ..parallel import shard
+from ..parallel.dist import gather_samples, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, nll_seg_loss, seg_miou_metrics
 from .optim import build_optimizer, count_params, set_trainable, step_generator
 from .pipeline import CorruptDraws, resolve_augmentation
-from .runner_cls import build_loaders, init_model
+from .runner_cls import build_loaders, init_model, sharded_loader
 
 # tools/runner_unify_seg.py:143-146
 SEG_PEFT_LIST = ["downstream_adapter", "downstream_prompts", "label_conv",
@@ -53,7 +57,9 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
     clip and AdamW. The draws (``viewpoints``, ``shell_normal``,
     ``lidar_idx``, ``lidar_factor``, the augmentation's) come, unless given,
     from a generator seeded from ``args.seed + 777`` and the optimizer's
-    count of calls."""
+    count of calls, as dropout and drop-path do; over several ranks drawn
+    for the global batch, whose loss and accuracy it returns
+    (``parallel.shard``)."""
     num_crop = int(int(config.dataset.train._base_.N_POINTS) * CROP_RATIO)
     augment = resolve_augmentation(config.get("data_augmentation", None))
     noisy = bool(config.get("noisy_train", False))
@@ -67,33 +73,35 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
         gen = step_generator(gens, pts.device, seed, optimizer.calls)
         dr = draws or CorruptDraws()
         model.train()
-        if augment is not None:
-            pts = augment(pts, gen, dr)
-        one_hot = to_categorical(cls_label, dtype=pts.dtype)
-        if unify and noisy:
-            points, _ = separate_point_cloud(pts, num_crop, viewpoint=dr.viewpoints,
-                                             generator=gen, resample=False)
-            B, P, _ = points.shape
-            shell = gaussian_shell_noise((B, GAUSSIAN_NUM, 3), loc=0.0, scale=deviation,
-                                         shell_radius=noise_radius, generator=gen,
-                                         normal=dr.shell_normal, device=pts.device)
-            points = torch.cat([points, shell], dim=1)
-            lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
-                                idx=dr.lidar_idx, factor=dr.lidar_factor)
-            points = torch.cat([points, lidar], dim=1)
-        else:
-            points, P = pts, pts.shape[1]
-        if unify:
-            out = model(points, one_hot, pts, completion_prompt=noisy, denoise=noisy,
-                        point_num=P)
-        else:
-            out = model(points, one_hot, pts)
+        with shard.global_batch(shard.this_rank(), gen):
+            if augment is not None:
+                pts = augment(pts, gen, dr)
+            one_hot = to_categorical(cls_label, dtype=pts.dtype)
+            if unify and noisy:
+                points, _ = separate_point_cloud(pts, num_crop, viewpoint=dr.viewpoints,
+                                                 generator=gen, resample=False)
+                B, P, _ = points.shape
+                shell = gaussian_shell_noise((B, GAUSSIAN_NUM, 3), loc=0.0, scale=deviation,
+                                             shell_radius=noise_radius, generator=gen,
+                                             normal=dr.shell_normal, device=pts.device)
+                points = torch.cat([points, shell], dim=1)
+                lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
+                                    idx=dr.lidar_idx, factor=dr.lidar_factor)
+                points = torch.cat([points, lidar], dim=1)
+            else:
+                points, P = pts, pts.shape[1]
+            if unify:
+                out = model(points, one_hot, pts, completion_prompt=noisy, denoise=noisy,
+                            point_num=P)
+            else:
+                out = model(points, one_hot, pts)
         loss = nll_seg_loss(out, target)
         acc = (out.argmax(-1) == target).float().mean() * 100.0
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]))
+        return {"loss": loss, "acc": acc}
 
     return train_step
 
@@ -129,17 +137,20 @@ def validate(eval_step, loader, device: torch.device, epoch: int, logger=None):
     """The mIoU suite of ``eval_step`` over ``loader``
     (``runner_unify_seg.py:300-368``): each point's prediction is the argmax
     over its object's category's parts only; then accuracy, class-avg and
-    instance-avg mIoU, logged with the per-category table in the
-    reference's format. The predictions are fetched once, after the sweep."""
-    preds, targets, cats = [], [], []
-    for pts, cls, seg in loader:
+    instance-avg mIoU over every rank's samples, each once, logged with the
+    per-category table in the reference's format. The predictions are
+    fetched once, after the sweep."""
+    preds, targets, cats, idxs = [], [], [], []
+    for idx, (pts, cls, seg) in loader.iter_indexed():
         logp = eval_step(torch.from_numpy(pts).to(device), torch.from_numpy(cls).to(device))
         allowed = torch.from_numpy(_part_masks(seg, logp.shape[-1])).to(device)
         preds.append(logp.masked_fill(~allowed[:, None, :], -torch.inf).argmax(-1))
         targets.append(seg)
         cats.append(cls)
-    m = seg_miou_metrics(torch.cat(preds).cpu().numpy(), np.concatenate(targets),
-                         np.concatenate(cats), SEG_CLASSES)
+        idxs.append(idx)
+    _, cols = gather_samples(np.concatenate(idxs), torch.cat(preds).cpu().numpy(),
+                             np.concatenate(targets), np.concatenate(cats))
+    m = seg_miou_metrics(*cols, SEG_CLASSES)
     for cat in sorted(m["per_category_iou"]):
         print_log("eval mIoU of %s %f" % (cat + " " * (14 - len(cat)),
                                           m["per_category_iou"][cat]), logger=logger)
@@ -231,7 +242,7 @@ def test_net(args, config, unify: bool = True):
     logger = get_logger(getattr(args, "log_name", "upp_torch"))
     test_ds = build_dataset_from_cfg(config.dataset.test._base_,
                                      config.dataset.test.others)
-    loader = BatchLoader(test_ds, config.dataset.test.others.bs)
+    loader = sharded_loader(test_ds, config.dataset.test.others.bs)
     model = init_model(args, config, device, logger=logger)
     return validate(make_seg_eval_step(model, config, unify), loader, device, 0,
                     logger=logger)

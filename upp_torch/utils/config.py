@@ -14,6 +14,8 @@ from typing import Any, Dict
 
 import yaml
 
+from ..parallel.dist import get_dist_info
+
 
 class ConfigDict(dict):
     """dict with attribute access (drop-in for easydict.EasyDict)."""
@@ -99,14 +101,16 @@ def cfg_from_yaml_file(cfg_file: str) -> ConfigDict:
 
 def get_config(args, logger=None) -> ConfigDict:
     """Load config for a run; on ``--resume`` re-read the saved snapshot
-    (reference ``utils/config.py:47-58``)."""
+    (reference ``utils/config.py:47-58``). Rank 0 alone writes the
+    snapshot."""
     if getattr(args, "resume", False):
         cfg_path = os.path.join(args.experiment_path, "config.yaml")
         if not os.path.exists(cfg_path):
             raise FileNotFoundError(f"cannot resume: no saved config at {cfg_path}")
         args.config = cfg_path
     config = cfg_from_yaml_file(args.config)
-    if not getattr(args, "resume", False) and getattr(args, "experiment_path", None):
+    if (not getattr(args, "resume", False) and getattr(args, "experiment_path", None)
+            and get_dist_info()[0] == 0):
         save_experiment_config(args)
     return config
 

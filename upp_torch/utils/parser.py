@@ -1,8 +1,11 @@
 """CLI argument surface — flag-compatible with the reference
-(``utils/parser.py:5-127``). --launcher, --sync_bn and --local_rank are
-accepted for compatibility; the port runs single-process for now.
-``--device`` names the device (CUDA unless told otherwise), and ``--test``
-without ``--ckpts`` evaluates a model from a seeded init."""
+(``utils/parser.py:5-127``). ``--launcher pytorch`` runs one rank of a
+data-parallel run that ``torchrun`` started (``parallel.dist.init_dist``);
+``--sync_bn`` is accepted and changes nothing, since BatchNorm always takes
+the global batch's statistics, as in the JAX package. ``--device`` names the
+device (CUDA unless told otherwise), and ``--test`` without ``--ckpts``
+evaluates a model from a seeded init. ``get_args`` names the run's
+directories; ``make_run_dirs`` creates them."""
 
 from __future__ import annotations
 
@@ -18,16 +21,24 @@ def get_args(argv=None):
                         default="cfgs/unify_modelnet_cls.yaml",
                         help="yaml config file")
     parser.add_argument("--launcher", choices=["none", "pytorch"],
-                        default="none", help="(compat) job launcher")
-    parser.add_argument("--local_rank", type=int, default=0)
+                        default="none",
+                        help="'pytorch': one rank of a data-parallel run started by "
+                             "torchrun (python -m torch.distributed.run); each rank "
+                             "takes total_bs // world_size clouds of every batch")
+    parser.add_argument("--local_rank", type=int,
+                        default=int(os.environ.get("LOCAL_RANK", 0)),
+                        help="this rank's card; torchrun's LOCAL_RANK by default")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain versions "
                              "of the kernels")
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--deterministic", action="store_true", default=False)
+    parser.add_argument("--deterministic", action="store_true", default=False,
+                        help="repeatable runs on the card: torch's deterministic "
+                             "algorithms (an op without one warns)")
     parser.add_argument("--sync_bn", action="store_true", default=False,
-                        help="(compat) single-process for now")
+                        help="accepted and unneeded: BatchNorm always normalises "
+                             "with the global batch's statistics")
     parser.add_argument("--exp_name", type=str, default="retrain")
     parser.add_argument("--loss", type=str, default="cd2")
     parser.add_argument("--start_ckpts", type=str, default=None)
@@ -86,6 +97,10 @@ def get_args(argv=None):
                                      Path(args.config).stem, ckpt_stem,
                                      args.exp_name)
     args.log_name = Path(args.config).stem
+    return args
+
+
+def make_run_dirs(args) -> None:
+    """Create the run's experiment and TensorBoard directories."""
     os.makedirs(args.experiment_path, exist_ok=True)
     os.makedirs(args.tfboard_path, exist_ok=True)
-    return args

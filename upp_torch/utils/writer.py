@@ -11,6 +11,8 @@ import os
 import time
 from typing import Optional
 
+from ..parallel.dist import get_dist_info
+
 
 class MetricsWriter:
     """add_scalar-compatible writer: tensorboardX when present, JSONL always."""
@@ -45,8 +47,9 @@ class MetricsWriter:
 
 
 def make_writers(args) -> tuple:
-    """(train_writer, val_writer) under args.tfboard_path (main.py:41-42)."""
-    if not getattr(args, "tfboard_path", None):
+    """(train_writer, val_writer) under args.tfboard_path (main.py:41-42);
+    (None, None) on every rank but rank 0."""
+    if not getattr(args, "tfboard_path", None) or get_dist_info()[0] != 0:
         return None, None
     return (MetricsWriter(args.tfboard_path, "train"),
             MetricsWriter(args.tfboard_path, "test"))
