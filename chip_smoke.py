@@ -9,7 +9,7 @@ Phases, each fatal on failure:
      spills (``ptxas -v``);
   2. hold each kernel against its plain PyTorch version on the card at
      every shape the paths give it (classification shapes at batch 120,
-     pretask shapes at batch 64): FPS indices equal, kNN indices equal and
+     pretask shapes at batch 64, the others below): FPS indices equal, kNN indices equal and
      distances within 1e-6 (gathered xyz equal), Chamfer indices equal and
      distances bit-equal with and without validity masks (one cloud with no
      valid target each way); time kernel and plain. Then all three again on
@@ -143,19 +143,54 @@ Phases, each fatal on failure:
      step by kind and bytes, and ms per step (two processes time-sharing
      one card: not a scaling number);
  27. dist nccl two cards: the same over NCCL, one card a rank, when there
-     are two cards; else it prints that it did not run and why.
+     are two cards; else it prints that it did not run and why;
+ 28. PoinTr at the width of its published PCN configuration (trans_dim
+     384, 6 + 8 blocks, 224 queries, 14336 predicted points) at batch 48,
+     on 2048-point partial views cropped from 16384-point synthetic clouds:
+     the eval forward (coarse (48, 448, 3), rebuild (48, 16384, 3), finite,
+     its launch counts, ms), then 3 train steps (forward in train mode,
+     ``get_loss``, backward, AdamW over every parameter): the launch counts
+     of one (FPS 2048→512→128 and 2048→224, kNN k=16 over 2048 and 512
+     points and the k=8 token graphs, Chamfer 448 x 16384 and 16384 x
+     16384), finite loss terms, every parameter changed, ms per step (mean
+     of 10 after a warm-up), clouds/s, peak memory and a profile over 3
+     steps (device busy, idle share);
+ 29. AdaPoinTr at the width of its PCN configuration (embed 384, 6 + 8
+     blocks, 512 queries, 16384 points, the fc decoder) at batch 48: as
+     phase 28, with the train outputs (pred_coarse, denoised_coarse,
+     denoised_fine, pred_fine) and the loss's kNN k=32 of 64 denoise centres
+     over 16384 points; the query ranking's parameters get no gradient and
+     stay bit-unchanged; then the fold decoder's k=64 loss kNN must raise on
+     the card (the kernel takes k <= 32);
+ 30. AdaPoinTr at full width with every local block style (attn-graph,
+     attn-rw_deform, attn-deform, attn-deform_graph, graph; the encoder by
+     concat, the decoder's self-attention one by one with the denoise
+     split, its cross-attention by concat) at batch 16: one train step,
+     finite, a nonzero gradient in each of the 9 deform blocks' offset
+     MLPs;
+ 31. completion card vs CPU at batch 4, both models from the same weights,
+     inputs and denoise draw: eval outputs within rtol 1e-3 / atol 2e-3
+     (AdaPoinTr's queries aligned first: its ranking's stable sort may order
+     near-equal ranks differently), loss terms within rtol 1e-3 / atol
+     2e-3, the gradients' global norm within rtol 1e-2;
+ 32. EMD (plain tensor code): card vs CPU at (4, 1024, 1024), the costs
+     within rtol 1e-4, the gradients within 1e-2 of the largest, and
+     ``Metrics.get(require_emd=True)``; the plain version's forward and
+     forward + backward time at (1, 16384, 16384) and (32, 2048, 2048).
 Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
-clouds and on tie-heavy grid clouds of 2048 points, and FPS, kNN and
-Chamfer at the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32
-points) and the fine-tune shapes (batch 40), on synthetic and tie-heavy
-grid clouds. Launch counts are reset right before each path run (4, 5, 7,
-8, 10, 11, 14, 15, 16, 19, 20, 22) and read right after; the
-kernel-vs-plain comparisons do not count. Before the last line it prints
-the ``kernels`` JSON line (FPS and kNN launches of one cls train step, of
-one seg PEFT train step, of one pretrain train step and of one fine-tune
-cls train step; Chamfer's of one pretask and of one pretrain train step;
-each entry names its ``path``) and the card's name and power limit; the
-last line is the ``{"ok": true, "device": ...}`` JSON object.
+clouds and on tie-heavy grid clouds of 2048 points; FPS, kNN and Chamfer at
+the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32 points) and
+the fine-tune shapes (batch 40), and every shape of the PoinTr and AdaPoinTr
+steps at batch 48 (kNN k=32 over 16384 points, Chamfer 16384 x 16384), on
+synthetic and tie-heavy grid clouds. Launch counts are reset right before
+each path run (4, 5, 7, 8, 10, 11, 14, 15, 16, 19, 20, 22, 28, 29, 30) and
+read right after; the kernel-vs-plain comparisons do not count. Before the
+last line it prints the ``kernels`` JSON line (FPS and kNN launches of one
+cls train step, of one seg PEFT train step, of one pretrain train step and
+of one fine-tune cls train step; Chamfer's of one pretask and of one
+pretrain train step; all three kernels' of one PoinTr and of one AdaPoinTr
+train step; each entry names its ``path``) and the card's name and power
+limit; the last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
 from __future__ import annotations
@@ -195,6 +230,11 @@ B_PRETRAIN_CPU = 4      # pretrain card-vs-CPU comparison batch
 N_MASKED = 38           # int(0.6 * 64) masked groups a cloud
 B_REBUILD = B_PRETRAIN * N_MASKED    # the pretrain step's Chamfer clouds of 32 points
 B_FT = 40               # total_bs of cfgs/finetune_modelnet_cls.yaml
+B_COMP = 48             # total_bs of the PCN configs (PoinTr repository, cfgs/PCN_models)
+B_COMP_CPU = 4          # completion card-vs-CPU comparison batch
+B_STYLES = 16           # AdaPoinTr with every local block style
+N_GT = 16384            # PCN's complete clouds
+N_PARTIAL = 2048        # PCN's partial clouds
 N_POINTS = 8192
 NPOINTS = 1024
 SEED = 0
@@ -275,6 +315,30 @@ PRETRAIN_CHAMFER = Counter({("chamfer", 32, 32, False): 1})   # rebuild vs maske
 FT_CALLS = Counter({("fps", 8192, 1024, True): 1,             # viewpoint crop
                     ("fps", 1096, 64, False): 1, ("knn", 64, 1096, 32, True): 1})
 FT_EVAL_CALLS = PRETRAIN_CALLS    # FPS to npoints, then the group (as the probe)
+# the completion family at the PCN shapes (2048-point partials, 16384-point
+# ground truth); every kNN here is idx-only
+GROUPER_CALLS = Counter({                     # DGCNNGrouper: edge-convs k=16, FPS 2048→512→128
+    ("knn", 2048, 2048, 16, False): 1, ("fps", 2048, 512, False): 1,
+    ("knn", 512, 2048, 16, False): 1, ("knn", 512, 512, 16, False): 1,
+    ("fps", 512, 128, False): 1, ("knn", 128, 512, 16, False): 1})
+POINTR_EVAL_CALLS = GROUPER_CALLS + Counter({
+    ("knn", 128, 128, 8, False): 1,           # encoder0's token graph
+    ("knn", 224, 224, 8, False): 1, ("knn", 224, 128, 8, False): 1,   # decoder0's
+    ("fps", 2048, 224, False): 1})            # the input's half of the coarse output
+POINTR_TRAIN_CALLS = POINTR_EVAL_CALLS + Counter({
+    ("chamfer", 448, 16384, False): 1, ("chamfer", 16384, 16384, False): 1})
+ADA_COMMON_CALLS = GROUPER_CALLS + Counter({
+    ("knn", 128, 128, 10, False): 1,          # encoder0's graph attention
+    ("fps", 2048, 256, False): 1})            # half the 768 candidate queries
+ADA_EVAL_CALLS = ADA_COMMON_CALLS + Counter({
+    ("knn", 512, 512, 10, False): 1, ("knn", 512, 128, 10, False): 1})   # decoder0's graphs
+ADA_TRAIN_CALLS = ADA_COMMON_CALLS + Counter({
+    ("fps", 2048, 64, False): 1,              # the denoise queries
+    ("knn", 576, 128, 10, False): 1,          # decoder0's cross graph (its self graph: the
+                                              # denoise split's masked top-k, plain torch)
+    ("knn", 64, 16384, 32, False): 1,         # the loss's denoise targets
+    ("chamfer", 2048, 2048, False): 1, ("chamfer", 512, 16384, False): 1,
+    ("chamfer", 16384, 16384, False): 1})
 KNN_GRAD_CALLS = ((("knn", 32, 32, 6, False), B_PRETASK), (("knn", 32, 1024, 16, True), B_PRETASK),
                   (("knn", 64, 32, 8, False), B), (("knn", 64, 1024, 32, True), B),
                   (("knn", 32, 32, 6, False), B), (("knn", 32, 972, 16, True), B))
@@ -426,14 +490,21 @@ def baseline_shapes():
             + [(c, B_FT) for c in sorted(set(FT_CALLS) | set(FT_EVAL_CALLS))])
 
 
+def completion_shapes():
+    """Every kernel shape of the PoinTr and AdaPoinTr train and eval steps."""
+    return sorted(set(POINTR_TRAIN_CALLS) | set(ADA_EVAL_CALLS) | set(ADA_TRAIN_CALLS))
+
+
 def kernel_shapes():
     """(call, batch) of every kernel shape the paths run: the classification
     shapes at batch 120, the pretask ones it does not share at batch 64, the
-    segmentation ones at batch 30, the pretrain and fine-tune ones."""
+    segmentation ones at batch 30, the pretrain and fine-tune ones, the
+    completion ones at batch 48."""
     cls = set(CLEAN_CALLS) | set(ROBUST_CALLS)
     pretask = (set(PRETASK_TRAIN_CALLS) | set(PRETASK_EVAL_CALLS)) - cls
     return ([(c, B) for c in sorted(cls)] + [(c, B_PRETASK) for c in sorted(pretask)]
-            + [(c, B_SEG) for c in seg_shapes()] + baseline_shapes())
+            + [(c, B_SEG) for c in seg_shapes()] + baseline_shapes()
+            + [(c, B_COMP) for c in completion_shapes()])
 
 
 def _check_fps(call, clouds, gen):
@@ -550,12 +621,13 @@ def rebuild_clouds(clouds):
     return clouds[:B_PRETRAIN, :B_REBUILD // B_PRETRAIN * 32].reshape(B_REBUILD, 32, 3)
 
 
-def phase_kernels(clouds, seg_clouds, card):
+def phase_kernels(clouds, seg_clouds, comp_clouds, card):
     """Kernel vs plain on the card at every path shape (the seg shapes on
-    the seg clouds, the pretrain Chamfer on ``rebuild_clouds``). Returns
+    the seg clouds, the pretrain Chamfer on ``rebuild_clouds``, the
+    completion shapes on the 16384-point ground-truth clouds). Returns
     per-shape rows."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    sources = {B_SEG: seg_clouds, B_REBUILD: rebuild_clouds(clouds)}
+    sources = {B_SEG: seg_clouds, B_REBUILD: rebuild_clouds(clouds), B_COMP: comp_clouds}
     rows = []
     for call, bsz in kernel_shapes():
         src = sources.get(bsz, clouds)
@@ -581,6 +653,8 @@ def phase_kernel_ties_and_edges(card):
     cases += [("seg ties", call, tie_clouds(B_SEG, N_SEG, gen)) for call in seg_shapes()]
     cases += [("baseline ties", call, tie_clouds(bsz, 32 if bsz == B_REBUILD else N_POINTS, gen))
               for call, bsz in baseline_shapes()]
+    cases += [("completion ties", call, tie_clouds(B_COMP, N_GT, gen))
+              for call in completion_shapes()]
     for call in EDGE_CALLS:
         n = max(call[1:3]) if call[0] in ("knn", "chamfer") else call[1]
         cases.append(("edge", call, torch.randn((B_EDGE, n, 3), generator=gen,
@@ -1882,6 +1956,302 @@ def phase_dist_ranks(card, device):
               f"NCCL needs a card for each of the {N_RANKS} ranks ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 28-32: point cloud completion (PoinTr, AdaPoinTr) and EMD
+
+# PoinTr's published PCN configuration: the model of cfgs/PCN_models/PoinTr.yaml
+# in the PoinTr repository (the keys the port reads)
+POINTR_PCN = {"NAME": "PoinTr", "num_pred": 14336, "num_query": 224, "knn_layer": 1,
+              "trans_dim": 384}
+# AdaPoinTr's: the model of cfgs/PCN_models/AdaPoinTr.yaml in the PoinTr
+# repository (the keys the port reads; it groups with the DGCNN grouper, as
+# the JAX package does, not the source's center_num hierarchy)
+ADAPOINTR_PCN = {
+    "NAME": "AdaPoinTr", "num_query": 512, "num_points": 16384, "decoder_type": "fc",
+    "encoder_config": {"embed_dim": 384, "depth": 6, "num_heads": 6,
+                       "block_style_list": ["attn-graph"] + ["attn"] * 5,
+                       "combine_style": "concat"},
+    "decoder_config": {"embed_dim": 384, "depth": 8, "num_heads": 6,
+                       "self_attn_block_style_list": ["attn-graph"] + ["attn"] * 7,
+                       "self_attn_combine_style": "concat",
+                       "cross_attn_block_style_list": ["attn-graph"] + ["attn"] * 7,
+                       "cross_attn_combine_style": "concat"}}
+# AdaPoinTr at the same width with every local block style: the encoder
+# combines by concat, the decoder's self-attention one by one (rw_deform
+# takes no denoise split, so it sits in the encoder), its cross-attention
+# by concat
+ADAPOINTR_STYLES = copy.deepcopy(ADAPOINTR_PCN)
+ADAPOINTR_STYLES["encoder_config"]["block_style_list"] = [
+    "attn-graph", "attn-rw_deform", "attn-deform", "attn-deform_graph", "graph", "attn"]
+ADAPOINTR_STYLES["decoder_config"].update(
+    self_attn_block_style_list=["attn-graph", "attn-deform", "attn-deform_graph", "graph"]
+    + ["attn"] * 4,
+    self_attn_combine_style="onebyone",
+    cross_attn_block_style_list=["attn-graph", "attn-deform", "attn-deform_graph", "deform",
+                                 "deform_graph", "graph", "attn", "attn"],
+    cross_attn_combine_style="concat")
+LOSS_TERMS = {"PoinTr": ("sparse", "dense"), "AdaPoinTr": ("denoised", "recon")}
+
+
+def completion_batch(n, device):
+    """(partial [n, 2048, 3], gt [n, 16384, 3]) on ``device``: ``Synthetic``
+    clouds of 16384 points as the ground truth, and as the partial view the
+    points left after cropping each cloud's 4096 nearest a random viewpoint,
+    FPS-resampled to 2048 (``ops/corrupt.py::partial_point_cloud``)."""
+    from upp_torch.data.synthetic import SyntheticDataset
+    from upp_torch.ops.corrupt import partial_point_cloud
+    from upp_torch.utils.config import ConfigDict
+    ds = SyntheticDataset(ConfigDict(N_POINTS=N_GT, NUM_CATEGORY=6, SIZE=n, subset="train"))
+    gt = torch.from_numpy(np.stack([ds[i][2][0] for i in range(n)]).astype(np.float32))
+    gt = gt.to(device)
+    with torch.no_grad():
+        partial = partial_point_cloud(gt, N_GT // 4, N_PARTIAL,
+                                      generator=torch.Generator(device=device).manual_seed(SEED))
+    return partial.contiguous(), gt
+
+
+def completion_model(cfg, device):
+    """The model of ``cfg`` with seeded weights, made on the CPU and moved."""
+    from upp_torch.models import build_model_from_cfg
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_model_from_cfg(cfg)
+    return model.to(device)
+
+
+def completion_setup(cfg, device):
+    """(model, train step): ``step(partial, gt, noise=None)`` runs the model
+    in train mode, ``get_loss``, the backward of the two terms' sum and
+    AdamW (lr 5e-4, weight decay 5e-4) over every parameter, and returns the
+    terms; AdaPoinTr's denoise noise is ``noise`` or a draw from a seeded
+    generator. ``step.shapes`` holds the last forward's output shapes."""
+    model = completion_model(cfg, device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=5e-4, weight_decay=5e-4)
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    ada = cfg["NAME"] == "AdaPoinTr"
+
+    def step(partial, gt, noise=None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        kw = {}
+        if ada:
+            kw = {"denoise_noise": noise} if noise is not None else {"generator": gen}
+        out = model(partial, **kw)
+        step.shapes = [tuple(o.shape) for o in out]
+        terms = model.get_loss(out, gt)
+        (terms[0] + terms[1]).backward()
+        optimizer.step()
+        return dict(zip(LOSS_TERMS[cfg["NAME"]], (t.detach() for t in terms)))
+
+    return model, step
+
+
+def phase_completion(name, cfg, comp, card, device, eval_want, train_want, eval_shapes,
+                     train_shapes):
+    """The eval forward at batch 48 (launch counts, output shapes, finite,
+    ms), then ``phase_train``: 3 train steps, launch counts of one, finite
+    loss terms, every parameter with a gradient changed and the others
+    bit-unchanged, ms per step, clouds/s, peak, a profile. Returns the
+    launch counts of one train step."""
+    partial, gt = comp
+    model, step = completion_setup(cfg, device)
+    model.eval()
+
+    @torch.inference_mode()
+    def evaluate():
+        return model(partial)
+
+    reset_counts()
+    with Recorder() as rec:
+        out = evaluate()
+        torch.cuda.synchronize()
+    eval_counts = check_calls(f"{name} eval", rec, eval_want)
+    if [tuple(o.shape) for o in out] != eval_shapes or not all(torch.isfinite(o).all()
+                                                                 for o in out):
+        raise AssertionError(f"{name} eval: outputs {[tuple(o.shape) for o in out]} "
+                             f"(want {eval_shapes}) or not finite")
+    eval_ms = cuda_ms(evaluate, reps=5, warmup=1)
+    print(f"[{name} eval] launches {eval_counts}; outputs {[tuple(o.shape) for o in out]}, "
+          f"finite; {eval_ms:.2f} ms/batch, {B_COMP / eval_ms * 1e3:.1f} clouds/s "
+          f"(B={B_COMP}; {card})", flush=True)
+    counts = phase_train(f"{name} train", step, model, (partial, gt), card, train_want, B_COMP)
+    if step.shapes != train_shapes:
+        raise AssertionError(f"{name} train: outputs {step.shapes}, want {train_shapes}")
+    print(f"[{name} train] train-mode outputs {step.shapes}", flush=True)
+    return counts
+
+
+def phase_adapointr_fold_limit(card, device):
+    """``decoder_type: fold`` rebuilds 64 points a query, so its loss asks
+    the kNN kernel for k = 64 > ``MAX_K``: on the card that must raise, not
+    run another version."""
+    from upp_torch.ops import knn_cuda
+    cfg = {"NAME": "AdaPoinTr", "num_query": 8, "decoder_type": "fold",
+           "encoder_config": {"embed_dim": 48, "depth": 1},
+           "decoder_config": {"embed_dim": 48, "depth": 1}}
+    model = completion_model(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ret = tuple(torch.randn((1, n, 3), generator=gen, device=device)
+                for n in (8, 4, 4 * 64, 8 * 64))
+    gt = torch.randn((1, 1024, 3), generator=gen, device=device)
+    try:
+        model.get_loss(ret, gt)
+    except ValueError as e:
+        print(f"[adapointr fold] get_loss on the card raises for k={model.factor} > "
+              f"MAX_K={knn_cuda.MAX_K}: {e} ({card})", flush=True)
+        return
+    raise AssertionError("adapointr fold: get_loss ran k=64 on the card without raising")
+
+
+def phase_adapointr_styles(comp, card, device):
+    """AdaPoinTr at full width with every local block style, one train step
+    at batch 16: finite loss terms, the three kernels launched, and a
+    nonzero gradient in every deform block's offset MLP."""
+    from upp_torch.models.deform_attn import (DeformableGraphAttention,
+                                              DeformableLocalAttention,
+                                              DeformableLocalCrossAttention)
+    partial, gt = (t[:B_STYLES] for t in comp)
+    model, step = completion_setup(ADAPOINTR_STYLES, device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        terms = step(partial, gt)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    vals = {k: float(v) for k, v in terms.items()}
+    if not all(np.isfinite(v) for v in vals.values()) or min(counts.values()) < 1:
+        raise AssertionError(f"adapointr styles: terms {vals}, launches {counts}")
+    deform = [(n, m) for n, m in model.named_modules() if isinstance(
+        m, (DeformableLocalAttention, DeformableLocalCrossAttention, DeformableGraphAttention))]
+    norms = {}
+    for n, m in deform:
+        mlp = (m.linear_offset if isinstance(m, DeformableGraphAttention)
+               else m.resample.linear_offset)
+        for pn, p in mlp.named_parameters():
+            if p.grad is None or not float(p.grad.norm()) > 0.0:
+                raise AssertionError(f"adapointr styles: no gradient in {n} offset MLP {pn}")
+        norms[n] = float(torch.sqrt(sum((p.grad ** 2).sum() for p in mlp.parameters())))
+    if len(deform) != 9:
+        raise AssertionError(f"adapointr styles: {len(deform)} deform blocks, want 9")
+    print(f"[adapointr styles] encoder {ADAPOINTR_STYLES['encoder_config']['block_style_list']} "
+          f"(concat), decoder self "
+          f"{ADAPOINTR_STYLES['decoder_config']['self_attn_block_style_list']} (onebyone), "
+          f"cross {ADAPOINTR_STYLES['decoder_config']['cross_attn_block_style_list']} "
+          f"(concat): one train step, terms {vals}, launches {counts}, kernel calls "
+          f"{dict(rec.calls)}, {ms:.1f} ms of host time with its first-call costs, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; offset-MLP gradient norms "
+          + ", ".join(f"{n} {v:.3g}" for n, v in norms.items())
+          + f" (B={B_STYLES}; {card})", flush=True)
+
+
+def _align_queries(card_out, cpu_out, per_query):
+    """AdaPoinTr's eval outputs (coarse [B, Q, 3], rebuild [B, Q*r, 3]) of
+    the card with the CPU's rows put in the card's query order: the query
+    ranking's stable sort may order two near-equal ranks differently on the
+    two devices. Each card centre takes the nearest CPU centre, which must
+    make a permutation. Returns (aligned CPU outputs, queries moved)."""
+    coarse_c, _ = card_out
+    coarse_h, rebuild_h = cpu_out
+    perm = torch.cdist(coarse_c.double(), coarse_h.double()).argmin(-1)      # [B, Q]
+    if not all(torch.equal(p.sort().values, torch.arange(p.numel())) for p in perm):
+        raise AssertionError("completion card vs CPU: the kept queries differ")
+    bsz, q = perm.shape
+    coarse = torch.gather(coarse_h, 1, perm[..., None].expand(-1, -1, 3))
+    rebuild = torch.gather(rebuild_h.reshape(bsz, q, per_query, 3), 1,
+                           perm[..., None, None].expand(-1, -1, per_query, 3))
+    moved = int((perm != torch.arange(q)).sum())
+    return (coarse, rebuild.reshape(bsz, -1, 3)), moved
+
+
+def phase_completion_card_vs_cpu(comp, card, device):
+    """Both models at batch 4 on the card and on the CPU from the same
+    weights, inputs and denoise draw (drawn on the CPU): eval outputs
+    within rtol 1e-3 / atol 2e-3, train-mode loss terms within rtol 1e-3 /
+    atol 2e-3, the gradients' global norm within rtol 1e-2."""
+    partial, gt = (t[:B_COMP_CPU].cpu() for t in comp)
+    noise = torch.randn((B_COMP_CPU, 64, 3), generator=torch.Generator().manual_seed(SEED + 11))
+    for cfg in (POINTR_PCN, ADAPOINTR_PCN):
+        name = cfg["NAME"]
+        results = []
+        for dev in (device, torch.device("cpu")):
+            model = completion_model(cfg, dev).eval()
+            with torch.inference_mode():
+                ev = [o.cpu() for o in model(partial.to(dev))]
+            model.train()
+            kw = {"denoise_noise": noise.to(dev)} if name == "AdaPoinTr" else {}
+            terms = model.get_loss(model(partial.to(dev), **kw), gt.to(dev))
+            (terms[0] + terms[1]).backward()
+            gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()
+                                   if p.grad is not None))
+            results.append((ev, [float(t.detach()) for t in terms], float(gnorm)))
+        (ev_c, t_c, g_c), (ev_h, t_h, g_h) = results
+        moved = 0
+        if name == "AdaPoinTr":
+            ev_h, moved = _align_queries(ev_c, ev_h,
+                                         int(cfg["num_points"]) // int(cfg["num_query"]))
+        diff = max((a - b).abs().max().item() for a, b in zip(ev_c, ev_h))
+        if not all(a.shape == b.shape and torch.allclose(a, b, rtol=1e-3, atol=2e-3)
+                   for a, b in zip(ev_c, ev_h)):
+            raise AssertionError(f"{name} card vs CPU: eval outputs differ by {diff}")
+        if not np.allclose(t_c, t_h, rtol=1e-3, atol=2e-3):
+            raise AssertionError(f"{name} card vs CPU: loss terms {t_c} vs {t_h}")
+        if not np.isclose(g_c, g_h, rtol=1e-2, atol=0.0):
+            raise AssertionError(f"{name} card vs CPU: grad norm {g_c} vs {g_h}")
+        print(f"[completion card vs cpu] {name} B={B_COMP_CPU}: eval max |diff| {diff:.3g} "
+              f"(rtol 1e-3, atol 2e-3; {moved} queries ranked in another order); loss terms "
+              f"card {t_c}, cpu {t_h} (rtol 1e-3, atol 2e-3); grad norm card {g_c:.6g}, cpu "
+              f"{g_h:.6g} (rtol 1e-2) ({card})", flush=True)
+
+
+def phase_emd(card, device):
+    """EMD card vs CPU at (4, 1024, 1024): the per-cloud costs within rtol
+    1e-4, the gradients of a weighted sum within 1e-2 of the largest
+    element (the exp(level * d) of the sharpest rounds magnifies the
+    devices' last-bit differences in d), ``Metrics.get(require_emd=True)``
+    within rtol 1e-4; then the plain version's time on the card."""
+    from upp_torch.ops.emd import earth_mover_distance
+    from upp_torch.train.metrics import Metrics
+    gen = torch.Generator().manual_seed(SEED + 12)
+    a = torch.randn((4, 1024, 3), generator=gen)
+    b = torch.randn((4, 1024, 3), generator=gen)
+    w = torch.rand((4,), generator=gen)
+    res = []
+    for dev in (device, torch.device("cpu")):
+        x, y = a.to(dev).requires_grad_(True), b.to(dev).requires_grad_(True)
+        cost = earth_mover_distance(x, y, reduce_mean=False)
+        (cost * w.to(dev)).sum().backward()
+        res.append((cost.detach().cpu(), x.grad.cpu(), y.grad.cpu(),
+                    Metrics.get(a.to(dev) * 0.1, b.to(dev) * 0.1, require_emd=True)))
+    (c_c, gx_c, gy_c, m_c), (c_h, gx_h, gy_h, m_h) = res
+    if not torch.allclose(c_c, c_h, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"EMD card vs CPU: costs {c_c} vs {c_h}")
+    g_err = max((g - h).abs().max().item() / h.abs().max().item()
+                for g, h in ((gx_c, gx_h), (gy_c, gy_h)))
+    if g_err > 1e-2:
+        raise AssertionError(f"EMD card vs CPU: gradients differ by {g_err} of the largest")
+    if not np.allclose(m_c, m_h, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"EMD card vs CPU: Metrics.get {m_c} vs {m_h}")
+    print(f"[emd card vs cpu] B=4, 1024 x 1024: costs max rel diff "
+          f"{((c_c - c_h).abs() / c_h.abs()).max().item():.3g} (rtol 1e-4); gradients max "
+          f"|diff| {g_err:.3g} of the largest (bound 1e-2); Metrics.get card {m_c}, cpu {m_h} "
+          f"({card})", flush=True)
+    for bsz, n in ((1, N_GT), (32, N_PARTIAL)):
+        g = torch.Generator(device=device).manual_seed(SEED + 13)
+        x = torch.randn((bsz, n, 3), generator=g, device=device)
+        y = torch.randn((bsz, n, 3), generator=g, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: earth_mover_distance(x, y), reps=3, warmup=1)
+        xg = x.clone().requires_grad_(True)
+        both_ms = cuda_ms(lambda: earth_mover_distance(xg, y).backward(), reps=3, warmup=1)
+        print(f"[emd time] plain EMD ({bsz}, {n}, {n}): forward {fwd_ms:.2f} ms, forward + "
+              f"backward {both_ms:.2f} ms, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+              f" GiB (CUDA events; {card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1913,10 +2283,11 @@ def main() -> int:
     clouds = all_clouds[:B]
     labels = torch.from_numpy(labels_np).to(device)[:B]
     seg = seg_batch(B_SEG, device)
+    comp = completion_batch(B_COMP, device)
 
     # 2. kernels vs plain, ties and edges, host cost; 3. kNN backward
     with torch.inference_mode():
-        rows = phase_kernels(all_clouds, seg[0], card)
+        rows = phase_kernels(all_clouds, seg[0], comp[1], card)
         phase_kernel_ties_and_edges(card)
         phase_host_cost(clouds, card)
         phase_chamfer_yardstick(clouds, card)
@@ -2027,6 +2398,20 @@ def main() -> int:
     phase_dist_world1(card, peft_ms)
     phase_dist_ranks(card, device)
 
+    # 28. PoinTr, 29. AdaPoinTr (and its fold decoder's kNN limit), 30. AdaPoinTr
+    # with every local style, 31. completion card vs CPU, 32. EMD
+    pointr_counts = phase_completion(
+        "pointr", POINTR_PCN, comp, card, device, POINTR_EVAL_CALLS, POINTR_TRAIN_CALLS,
+        [(B_COMP, 448, 3), (B_COMP, N_GT, 3)], [(B_COMP, 448, 3), (B_COMP, N_GT, 3)])
+    ada_counts = phase_completion(
+        "adapointr", ADAPOINTR_PCN, comp, card, device, ADA_EVAL_CALLS, ADA_TRAIN_CALLS,
+        [(B_COMP, 512, 3), (B_COMP, N_GT, 3)],
+        [(B_COMP, 512, 3), (B_COMP, 64, 3), (B_COMP, 64 * 32, 3), (B_COMP, N_GT, 3)])
+    phase_adapointr_fold_limit(card, device)
+    phase_adapointr_styles(comp, card, device)
+    phase_completion_card_vs_cpu(comp, card, device)
+    phase_emd(card, device)
+
     # the cls train step's forward makes the robust step's kernel calls
     kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"], B, "cls train step"),
                kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"], B, "cls train step"),
@@ -2042,12 +2427,17 @@ def main() -> int:
                              B_REBUILD, "pretrain"),
                 kernel_entry("fps", rows, FT_CALLS, ft_counts["fps"], B_FT, "finetune_cls"),
                 kernel_entry("knn", rows, FT_CALLS, ft_counts["knn"], B_FT, "finetune_cls")]
+    kernels += [kernel_entry(k, rows, POINTR_TRAIN_CALLS, pointr_counts[k], B_COMP,
+                             "pointr train step") for k in ("fps", "knn", "chamfer")]
+    kernels += [kernel_entry(k, rows, ADA_TRAIN_CALLS, ada_counts[k], B_COMP,
+                             "adapointr train step") for k in ("fps", "knn", "chamfer")]
     print("[kernels] ms/plain_ms/bound_ms summed over one step's calls of each entry's path: "
           f"fps and knn over one cls train step (B={B}, the robust step's calls), one seg "
           f"PEFT train step (B={B_SEG}), one pretrain train step (B={B_PRETRAIN}) and one "
           f"fine-tune cls train step (B={B_FT}); chamfer over one pretask train step "
-          f"(B={B_PRETASK}) and one pretrain train step (its {B_REBUILD} clouds of 32); "
-          f"launches from those steps' runs; {card}")
+          f"(B={B_PRETASK}) and one pretrain train step (its {B_REBUILD} clouds of 32); all "
+          f"three over one PoinTr and one AdaPoinTr train step (B={B_COMP}); launches from "
+          f"those steps' runs; {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ accuracy (``get_loss_acc``), the per-point NLL of segmentation and the
 ShapeNetPart mIoU suite (``tools/runner_unify_seg.py:301-368``; numpy, a
 copy of the JAX package's), ``Acc_Metric``, ``CD_Metric``
 (``tools/runner_pretask.py:32-66``), F-Score / CDL1 / CDL2
-(``utils/metrics.py``; EMD is not ported) and ``AverageMeter``."""
+(``utils/metrics.py``, with the EMD entry of ``Metrics.get``) and
+``AverageMeter``."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.chamfer import chamfer_l1, chamfer_l2, nn_distance
+from ..ops.emd import earth_mover_distance
 
 
 def cross_entropy_loss_acc(logits: torch.Tensor, labels: torch.Tensor):
@@ -129,7 +131,9 @@ def completion_metrics(pred: torch.Tensor, gt: torch.Tensor) -> Dict[str, torch.
 
 class Metrics:
     """The completion-metric table: F-Score@0.01 (higher is better), CDL1
-    and CDL2 x1000 (lower is better)."""
+    and CDL2 x1000 (lower is better). The reference defines and disables an
+    EMD entry (``metrics.py:37-44``); ``get(..., require_emd=True)``
+    appends it, x1000, as the JAX package does."""
 
     ITEMS = [{"name": "F-Score", "higher_better": True},
              {"name": "CDL1", "higher_better": False},
@@ -138,6 +142,23 @@ class Metrics:
     @classmethod
     def names(cls):
         return [item["name"] for item in cls.ITEMS]
+
+    @classmethod
+    def get(cls, pred: torch.Tensor, gt: torch.Tensor, require_emd: bool = False):
+        """[F-Score, CDL1, CDL2] (then EMD x1000 with ``require_emd``) of
+        ``pred`` [B, N, 3] against ``gt`` [B, M, 3] as floats, batch-meaned."""
+        with torch.no_grad():
+            vals = completion_metrics(pred, gt)
+            out = [float(vals[n]) for n in cls.names()]
+            if require_emd:
+                out.append(float(earth_mover_distance(pred, gt)) * 1000.0)
+        return out
+
+    @classmethod
+    def better_than(cls, name: str, a: float, b: float) -> bool:
+        """Whether value ``a`` of metric ``name`` beats ``b``."""
+        spec = next(i for i in cls.ITEMS if i["name"] == name)
+        return a > b if spec["higher_better"] else a < b
 
 
 class AverageMeter:

@@ -25,8 +25,12 @@ its import shim):
 checkpoint loader strips it); its ``increase_dim.0`` is
 ``increase_dim_conv``.
 
+The completion models (``PoinTr``, ``AdaPoinTr``) take the JAX tree's
+names (``base_model.encoder0.attn.qkv`` → ``base_model/encoder0/attn/qkv``):
+no rename applies to them.
+
 Leaves: a Linear/Conv ``weight`` is the transposed ``kernel``, a norm's
-``weight`` its ``scale``, ``running_mean``/``running_var`` the batch_stats
+(LayerNorm, GroupNorm, BatchNorm) ``weight`` its ``scale``, ``running_mean``/``running_var`` the batch_stats
 ``mean``/``var``; ``num_batches_tracked`` has no JAX counterpart and is 0.
 """
 
@@ -76,7 +80,7 @@ _TOP_LEVEL = ("cls_token", "cls_pos", "cls_head_finetune", "label_conv",
               "propagation_0", "seg_head")
 _BLOCK = re.compile(r"^(blocks\.blocks|MAE_decoder\.blocks)\.(\d+)\.(.+)$")
 _STACKS = {"blocks.blocks": "blocks", "MAE_decoder.blocks": "MAE_decoder/blocks"}
-_NORMS = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
