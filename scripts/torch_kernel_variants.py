@@ -39,10 +39,12 @@ prints the committed kernels' device time at every shape of
 wrapper's host cost is the longer.
 
 ``--parent DIR`` names an unpacked checkout of an earlier commit (for
-example ``git archive <commit> | tar -x -C build/parent``): its Chamfer
-kernel and wrapper are timed against the committed ones in the same turns,
-through both wrappers by CUDA events too, and swapped into the pretask eval
-and train steps to compare their device-busy time.
+example ``git archive <commit> | tar -x -C build/parent``): its kNN kernel
+is timed against the committed one in the same turns at every kNN shape
+above (the k <= 32 instance), outputs equal; its Chamfer kernel and wrapper
+are timed against the committed ones in the same turns, through both
+wrappers by CUDA events too, and swapped into the pretask eval and train
+steps to compare their device-busy time.
 """
 
 from __future__ import annotations
@@ -212,12 +214,15 @@ def fps_variants(clouds, gen, card):
                   f"(B={B}; {card})", flush=True)
 
 
-def knn_variants(clouds, card):
+def knn_variants(clouds, card, parent_dir=None):
     from upp_torch.ops import knn_cuda
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = {"per-chunk": build("knn_per_chunk", substituted("knn", KNN_PER_CHUNK)),
             "no-cap": build("knn_no_cap", substituted("knn", KNN_NO_CAP)),
             "merge-first": build("knn_merge_first", substituted("knn", KNN_MERGE_FIRST))}
+    if parent_dir:
+        libs["parent"] = build("knn_parent",
+                               (Path(parent_dir) / "upp_torch" / "csrc" / "knn.cu").read_text())
     fns = {name: lib.upp_knn for name, lib in libs.items()}
     committed = knn_cuda._lib().upp_knn
     for fn in fns.values():
@@ -471,14 +476,14 @@ def main() -> int:
     kernels = set(args) or {"fps", "knn", "chamfer"}
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    clouds = torch.from_numpy(synthetic_clouds(B)).cuda()
+    clouds = torch.from_numpy(synthetic_clouds(B)[0]).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         committed_device_times(clouds, gen, card)
         if "fps" in kernels:
             fps_variants(clouds, gen, card)
         if "knn" in kernels:
-            knn_variants(clouds, card)
+            knn_variants(clouds, card, parent_dir)
         if "chamfer" in kernels:
             chamfer_variants(clouds, card, parent_dir)
     if "chamfer" in kernels and parent_dir:

@@ -138,7 +138,7 @@ def main() -> int:
     device = resolve_device("cuda")
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    clouds = torch.from_numpy(synthetic_clouds(B)).to(device)
+    clouds = torch.from_numpy(synthetic_clouds(B)[0]).to(device)
     config = cfg_from_yaml_file(PRETASK_CFG)
     phase_repeat(clouds, config, device)
     phase_ops(clouds)

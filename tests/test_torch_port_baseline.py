@@ -214,8 +214,3 @@ def test_mask_draw_and_drop_path_follow_the_generator():
     assert loss[0] == loss[1] != loss[2]
     full = build_model_from_cfg({**MAE_SMALL, "num_group": 64})
     assert full.rand_mask_idx(2, torch.device("cpu"))[1].shape == (2, 38)
-
-
-def test_if_half_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="if_half"):
-        build_model_from_cfg({**MAE_SMALL, "if_half": True})

@@ -444,9 +444,8 @@ def test_cli_trains_resumes_and_votes_on_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_models_and_tasks_raise():
-    """A model the port does not have yet (the legacy pretask model) is
-    refused by name."""
+    """A model name that no package registers is refused by name."""
     config = cfg_from_yaml_file(str(REPO / "cfgs/finetune_modelnet_cls.yaml"))
-    config.model.NAME = "Point_MAE_pretask"
-    with pytest.raises(NotImplementedError, match="Point_MAE_pretask"):
+    config.model.NAME = "Point_MAE_unregistered"
+    with pytest.raises(NotImplementedError, match="Point_MAE_unregistered"):
         runner_cls.init_model(types.SimpleNamespace(seed=0), config, torch.device("cpu"))

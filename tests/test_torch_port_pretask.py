@@ -401,10 +401,10 @@ def test_pretask_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 def test_only_adamw_and_single_step_updates_are_ported(pair):
-    """Optimizers other than AdamW are refused (``step_per_update`` > 1 is
-    ported: ``test_torch_port_cls_runner.py`` holds it to the JAX
-    package)."""
+    """An optimizer type the JAX package does not build (it has AdamW, Adam
+    and SGD) is refused (``step_per_update`` > 1 is ported:
+    ``test_torch_port_cls_runner.py`` holds it to the JAX package)."""
     _, _, tm = pair
-    change = {"optimizer": {"type": "SGD", "kwargs": {"lr": 0.1}}}
+    change = {"optimizer": {"type": "RMSprop", "kwargs": {"lr": 0.1}}}
     with pytest.raises(NotImplementedError):
         optim.build_optimizer(ConfigDict.from_nested({**CONFIG, **change}), tm, 1)

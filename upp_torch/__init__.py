@@ -20,7 +20,9 @@ def resolve_device(device=None) -> torch.device:
     Raises when CUDA is wanted and absent — an entry point never falls back
     to the CPU on its own. On CUDA, TF32 is turned off for matmuls and
     convolutions: the JAX reference computes in full float32
-    (``Precision.HIGHEST`` for the distance math)."""
+    (``Precision.HIGHEST`` for the distance math); and bf16 products
+    (``if_half``) reduce in float32 throughout, split-K partial sums
+    included, before their one rounding."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,4 +31,5 @@ def resolve_device(device=None) -> torch.device:
                 "run the plain PyTorch versions of the kernels")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -37,6 +37,18 @@
 // elementwise min and a bitonic merge (shuffles only), and the threshold is
 // renewed; so a merge serves up to 32 candidates instead of one chunk's
 // few. Lanes 0..k-1 then write d, idx and the gathered xyz, coalesced.
+//
+// k in 33..64 (AdaPoinTr's fold decoder asks for 64) keeps two keys a lane,
+// the template's KEYS = 2: the 64 smallest merged so far, ascending, lane m
+// holding key m in `best` and key 32 + m in `best_hi`; the threshold is the
+// k-th of the 64. A flush merges the sorted buffer into both halves: the
+// elementwise min and max of `best` and the reversed buffer are bitonic and
+// hold the 32 smallest and the 32 largest of their union, so `best` is the
+// first cleaned, and `best_hi` the 32 smallest of the old `best_hi` and the
+// second (a warp_merge). The cloud is still read once, and a second pass
+// over it (the other way to serve k > 32, restarting above the kept 32th
+// key) would evaluate every distance twice. KEYS = 1 is the k <= 32 kernel
+// of every other call site, unchanged.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +56,7 @@
 
 namespace {
 
-constexpr int kMaxK = 32;
+constexpr int kMaxK = 64;   // two kept keys a lane of the query's warp
 constexpr int kMaxN = 16384;  // 12 bytes a point: 192 KB of shared memory
 constexpr int kWarps = 8;     // warps per block, one query at a time each
 constexpr int kMaxBlocks = 2048;  // about two waves of 8 resident blocks on 132 SMs
@@ -76,11 +88,8 @@ __device__ __forceinline__ unsigned long long warp_sort(unsigned long long v, in
   return v;
 }
 
-// The 32 smallest of two ascending warp sequences, ascending: the
-// elementwise min of `q` and reversed `c` is bitonic and holds them.
-__device__ __forceinline__ unsigned long long warp_merge(unsigned long long q,
-                                                         unsigned long long c, int lane) {
-  unsigned long long v = umin64(q, __shfl_sync(kFull, c, 31 - lane));
+// A bitonic sequence, one key per lane, sorted ascending with the lane.
+__device__ __forceinline__ unsigned long long warp_clean(unsigned long long v, int lane) {
 #pragma unroll
   for (int stride = 16; stride > 0; stride >>= 1) {
     const unsigned long long o = __shfl_xor_sync(kFull, v, stride);
@@ -89,6 +98,14 @@ __device__ __forceinline__ unsigned long long warp_merge(unsigned long long q,
   return v;
 }
 
+// The 32 smallest of two ascending warp sequences, ascending: the
+// elementwise min of `q` and reversed `c` is bitonic and holds them.
+__device__ __forceinline__ unsigned long long warp_merge(unsigned long long q,
+                                                         unsigned long long c, int lane) {
+  return warp_clean(umin64(q, __shfl_sync(kFull, c, 31 - lane)), lane);
+}
+
+template <int KEYS>
 __global__ void __launch_bounds__(kWarps * 32)
 knn_kernel(const float* __restrict__ query, const float* __restrict__ points, int S,
            int N, int K, float* __restrict__ d_out, int* __restrict__ idx_out,
@@ -115,7 +132,8 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points, in
     const float qx = query[3 * row], qy = query[3 * row + 1], qz = query[3 * row + 2];
 
     unsigned long long best = kNone;   // lane m: the m-th smallest key merged
-    unsigned long long worst = kNone;  // lane K-1's key
+    unsigned long long best_hi = kNone;  // KEYS == 2: lane m, the (32 + m)-th
+    unsigned long long worst = kNone;  // the K-th smallest key merged
     int count = 0;                     // candidates pending, the same in every lane
     bool merged = false;               // whether `best` holds any key yet
     // merge the pending candidates into `best`: sort them, merge, new threshold
@@ -124,8 +142,20 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points, in
       const unsigned long long c = lane < count ? pending[lane] : kNone;
       __syncwarp();  // read before a lane writes again
       const unsigned long long sorted = warp_sort(c, lane);
-      best = merged ? warp_merge(best, sorted, lane) : sorted;
-      worst = __shfl_sync(kFull, best, K - 1);
+      if (KEYS == 1) {
+        best = merged ? warp_merge(best, sorted, lane) : sorted;
+        worst = __shfl_sync(kFull, best, K - 1);
+      } else {
+        if (merged) {
+          const unsigned long long r = __shfl_sync(kFull, sorted, 31 - lane);
+          const unsigned long long upper = warp_clean(umax64(best, r), lane);
+          best = warp_clean(umin64(best, r), lane);
+          best_hi = warp_merge(best_hi, upper, lane);
+        } else {
+          best = sorted;
+        }
+        worst = __shfl_sync(kFull, K > 32 ? best_hi : best, (K - 1) & 31);
+      }
       count = 0;
       merged = true;
     };
@@ -155,37 +185,59 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points, in
     }
     if (count > 0) flush();
 
-    if (lane < K) {
-      const int j = static_cast<int>(best & 0xffffffffu);
-      const size_t o = row * K + lane;
-      d_out[o] = __uint_as_float(static_cast<unsigned>(best >> 32));
-      idx_out[o] = j;
-      if (nbr_out != nullptr) {
-        nbr_out[3 * o] = px[j];
-        nbr_out[3 * o + 1] = py[j];
-        nbr_out[3 * o + 2] = pz[j];
+#pragma unroll
+    for (int h = 0; h < KEYS; ++h) {
+      const int m = 32 * h + lane;
+      if (m < K) {
+        const unsigned long long key = h == 0 ? best : best_hi;
+        const int j = static_cast<int>(key & 0xffffffffu);
+        const size_t o = row * K + m;
+        d_out[o] = __uint_as_float(static_cast<unsigned>(key >> 32));
+        idx_out[o] = j;
+        if (nbr_out != nullptr) {
+          nbr_out[3 * o] = px[j];
+          nbr_out[3 * o + 1] = py[j];
+          nbr_out[3 * o + 2] = pz[j];
+        }
       }
     }
   }
 }
 
-// The kernel's dynamic shared memory limit is raised on each device once per
-// device and size, the first time a launch needs more than is set, not on
-// every call (beyond 48 KB a launch fails without it).
+// Each kernel's dynamic shared memory limit is raised on each device once
+// per device and size, the first time a launch needs more than is set, not
+// on every call (beyond 48 KB a launch fails without it).
 std::mutex g_smem_mutex;
-int g_smem_limit[kMaxDevices];
+int g_smem_limit[2][kMaxDevices];
 
+template <int KEYS>
 cudaError_t reserve_smem(size_t bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(g_smem_mutex);
-  if (g_smem_limit[dev] >= static_cast<int>(bytes)) return cudaSuccess;
-  err = cudaFuncSetAttribute(knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  int& limit = g_smem_limit[KEYS - 1][dev];
+  if (limit >= static_cast<int>(bytes)) return cudaSuccess;
+  err = cudaFuncSetAttribute(knn_kernel<KEYS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
-  if (err == cudaSuccess) g_smem_limit[dev] = static_cast<int>(bytes);
+  if (err == cudaSuccess) limit = static_cast<int>(bytes);
   return err;
+}
+
+template <int KEYS>
+int launch(const float* query, const float* points, int B, int S, int N, int K,
+           float* d_out, int* idx_out, float* nbr_out, cudaStream_t stream) {
+  const int warps = min(kWarps, S);
+  // a block per (cloud, 8 queries), or fewer blocks whose warps take several
+  // queries each where that would exceed kMaxBlocks
+  const dim3 grid(min((S + warps - 1) / warps, max(1, kMaxBlocks / B)), B);
+  const size_t smem = sizeof(float) * 3 * static_cast<size_t>(N);
+  const cudaError_t err = reserve_smem<KEYS>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  knn_kernel<KEYS><<<grid, warps * 32, smem, stream>>>(query, points, S, N, K, d_out,
+                                                        idx_out, nbr_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -208,16 +260,9 @@ int upp_knn(const float* query, const float* points, int B, int S, int N, int K,
   if (B <= 0 || S <= 0) return 0;
   if (N <= 0 || N > kMaxN || K <= 0 || K > kMaxK || K > N || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = min(kWarps, S);
-  // a block per (cloud, 8 queries), or fewer blocks whose warps take several
-  // queries each where that would exceed kMaxBlocks
-  const dim3 grid(min((S + warps - 1) / warps, max(1, kMaxBlocks / B)), B);
-  const size_t smem = sizeof(float) * 3 * static_cast<size_t>(N);
-  const cudaError_t err = reserve_smem(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  knn_kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      query, points, S, N, K, d_out, idx_out, nbr_out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return K <= 32 ? launch<1>(query, points, B, S, N, K, d_out, idx_out, nbr_out, s)
+                 : launch<2>(query, points, B, S, N, K, d_out, idx_out, nbr_out, s);
 }
 
 }  // extern "C"

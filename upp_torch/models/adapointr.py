@@ -401,8 +401,8 @@ class AdaPoinTr(nn.Module):
     def get_loss(self, ret, gt):
         """(``AdaPoinTr.py:924-946``): (0.5 x the denoise Chamfer-L1, coarse
         plus fine Chamfer-L1). The denoise targets are each denoise centre's
-        ``factor`` nearest ground-truth points: on CUDA the kNN kernel,
-        which takes k <= 32, so the ``fold`` decoder's 64 raises there."""
+        ``factor`` nearest ground-truth points (64 for the ``fold``
+        decoder, the kNN kernel's two-keys-a-lane instance on CUDA)."""
         pred_coarse, denoised_coarse, denoised_fine, pred_fine = ret
         _, idx = knn(denoised_coarse, gt, self.factor)
         target = index_points(gt, idx).reshape(gt.shape[0], -1, 3)

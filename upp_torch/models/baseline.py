@@ -7,7 +7,11 @@ side under ``MAE_encoder`` (``encoder``, ``pos_embed``, ``blocks``,
 ``norm``) beside ``MAE_decoder``, ``decoder_pos_embed``, ``increase_dim.0``
 and ``mask_token``, so ``ckpt_io``'s ``MAE_encoder.`` strip loads a pretrain
 checkpoint into ``PointTransformer`` without renaming (the reference's
-fine-tune recipe).
+fine-tune recipe). ``Point_MAE``'s ``if_half: True`` runs its encoder's
+convolutions and both block stacks in bf16 products with float32
+accumulation (``layers.half_matmul``; ``upp_tpu/models/baseline.py:42-46``);
+parameters, BatchNorm statistics, the LayerNorms, the positional
+embeddings and the rebuild head stay float32.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from ..ops.group import group_points
 from ..parallel import shard
 from ..utils.config import to_config
 from .build import MODELS
-from .layers import Encoder, PointConv, PosEmbedMLP, layer_norm
+from .layers import Encoder, PointConv, PosEmbedMLP, compute_dtype, layer_norm
 from .scan_blocks import ScannedDecoderStack, ScannedEncoderStack
 from .unify import ClsHead
 
@@ -32,12 +36,13 @@ class MaskTransformer(nn.Module):
     """The encoder side of ``Point_MAE`` (``MAE_encoder.*``): group tokenizer,
     positional embedding, the plain block stack and its LayerNorm."""
 
-    def __init__(self, tc):
+    def __init__(self, tc, cdtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = Encoder(tc.encoder_dims)
+        self.encoder = Encoder(tc.encoder_dims, cdtype)
         self.pos_embed = PosEmbedMLP(tc.trans_dim)
         self.blocks = ScannedEncoderStack(tc.trans_dim, tc.depth, tc.num_heads,
-                                          drop_path_rate=tc.drop_path_rate, plain=True)
+                                          drop_path_rate=tc.drop_path_rate, plain=True,
+                                          compute_dtype=cdtype)
         self.norm = layer_norm(tc.trans_dim)
 
 
@@ -52,20 +57,18 @@ class PointMAE(nn.Module):
         super().__init__()
         cfg = to_config(config)
         tc = cfg.transformer_config
-        if bool(cfg.get("if_half", False)):
-            raise NotImplementedError("Point_MAE: if_half (bf16 block stacks) is not "
-                                      "ported yet; set if_half: False")
+        cdtype = compute_dtype(bool(cfg.get("if_half", False)))
         self.trans_dim = tc.trans_dim
         self.num_group = cfg.num_group
         self.group_size = cfg.group_size
         self.num_mask = int(tc.mask_ratio * cfg.num_group)
         self.loss_fn = chamfer_l1 if cfg.get("loss", "cdl2") == "cdl1" else chamfer_l2
-        self.MAE_encoder = MaskTransformer(tc)
+        self.MAE_encoder = MaskTransformer(tc, cdtype)
         self.decoder_pos_embed = PosEmbedMLP(tc.trans_dim)
         self.MAE_decoder = ScannedDecoderStack(tc.trans_dim, tc.decoder_depth,
                                                tc.decoder_num_heads,
                                                drop_path_rate=tc.drop_path_rate,
-                                               plain=True)
+                                               plain=True, compute_dtype=cdtype)
         self.increase_dim = nn.Sequential(PointConv(tc.trans_dim, 3 * cfg.group_size))
         self.mask_token = nn.Parameter(torch.zeros(1, 1, tc.trans_dim))
         nn.init.trunc_normal_(self.mask_token, std=0.02)

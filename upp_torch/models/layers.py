@@ -16,6 +16,13 @@ step over a sharded batch does. Random draws of train mode (dropout,
 drop-path) come from the train step's generator inside ``global_batch``,
 drawn for the global batch; else from torch's RNG, or drop-path's from a
 generator the caller passes.
+
+``if_half`` (``compute_dtype=torch.bfloat16``): the products of the
+transformer blocks (``Attention``, ``Mlp``) and of ``Encoder``'s pointwise
+convolutions take bf16 operands with float32 accumulation, as the JAX
+package's ``preferred_element_type=float32`` einsums do
+(``upp_tpu/models/scan_blocks.py:336-362``); parameters, LayerNorm,
+softmax, BatchNorm statistics, biases and residuals stay float32.
 """
 
 from __future__ import annotations
@@ -32,6 +39,105 @@ from ..parallel.dist import all_reduce_sum
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
+
+
+class _HalfLinear(torch.autograd.Function):
+    """``x @ w.T (+ b)`` on the card with bf16 operands and a float32
+    product: one ``torch.mm``/``addmm(..., out_dtype=float32)``
+    (``aten::mm.dtype``, a bf16 tensor-core GEMM whose epilogue adds the
+    float32 bias), which has no derivative of its own. Each operand's
+    gradient is a bf16 GEMM of the bf16-rounded cotangent, rounded once to
+    bf16 as JAX's ``dot_general`` transpose casts to its operand's type;
+    the bias's is the float32 sum. One Function a product keeps the host's
+    work per call near ``F.linear``'s: the step is host-bound at these
+    token counts."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x16 = x.reshape(-1, x.shape[-1]).bfloat16()
+        w16 = w.bfloat16()
+        # a frozen weight (the PEFT backbone) needs no copy of its input
+        ctx.save_for_backward(x16 if ctx.needs_input_grad[1] else None, w16)
+        ctx.has_bias = b is not None
+        y = (torch.mm(x16, w16.t(), out_dtype=torch.float32) if b is None
+             else torch.addmm(b, x16, w16.t(), out_dtype=torch.float32))
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x16, w16 = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        g16 = g2.bfloat16()
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g16, w16).reshape(*g.shape[:-1], w16.shape[1])
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(g16.t(), x16)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = g2.sum(0)
+        return gx, gw, gb
+
+
+class _HalfBmm(torch.autograd.Function):
+    """``a @ b`` batched over the leading axes on the card, bf16 operands,
+    float32 product (``torch.bmm(..., out_dtype=float32)``); gradients as
+    ``_HalfLinear``'s."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16 = a.bfloat16().reshape(-1, *a.shape[-2:])
+        b16 = b.bfloat16().reshape(-1, *b.shape[-2:])
+        ctx.save_for_backward(a16, b16)
+        ctx.shapes = (a.shape, b.shape)
+        out = torch.bmm(a16, b16, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-2], *out.shape[-2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        a_shape, b_shape = ctx.shapes
+        g16 = g.bfloat16().reshape(-1, *g.shape[-2:])
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g16, b16.transpose(1, 2)).reshape(a_shape)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a16.transpose(1, 2), g16).reshape(b_shape)
+        return ga, gb
+
+
+def half_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to bf16 and the product in
+    float32: ``jnp.einsum(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=float32)``. ``b`` is a weight [K, N] or batched
+    like ``a``. On the CPU the operands are upcast again, which is exact (a
+    product of two bf16 values fits a float32), and autograd rounds each
+    gradient to bf16 through the casts, as JAX does; on the card
+    ``_HalfLinear``/``_HalfBmm``. A plain ``bf16 @ bf16`` would round the
+    product to bf16 before the bias."""
+    if a.device.type == "cuda":
+        return _HalfLinear.apply(a, b.t(), None) if b.dim() == 2 else _HalfBmm.apply(a, b)
+    return a.bfloat16().float() @ b.bfloat16().float()
+
+
+def compute_dtype(if_half: bool) -> torch.dtype:
+    """The products' operand type of a model with the config's ``if_half``."""
+    return torch.bfloat16 if if_half else torch.float32
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, half: bool) -> torch.Tensor:
+    """``a @ b``, or ``half_matmul`` with ``half``."""
+    return half_matmul(a, b) if half else a @ b
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, half: bool) -> torch.Tensor:
+    """``layer(x)``, or with ``half`` its product by ``half_matmul`` and the
+    float32 bias added after (in the GEMM's epilogue on the card)."""
+    if not half:
+        return layer(x)
+    if x.device.type == "cuda":
+        return _HalfLinear.apply(x, layer.weight, layer.bias)
+    y = half_matmul(x, layer.weight.t())
+    return y if layer.bias is None else y + layer.bias
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -154,24 +260,30 @@ class PosEmbedMLP(TwoLayerHead):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP (``Point_MAE_unify.py:226-242``); dropout 0."""
+    """Transformer MLP (``Point_MAE_unify.py:226-242``); dropout 0. With
+    ``compute_dtype`` bf16 its two products are ``half_matmul``s."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.half = compute_dtype == torch.bfloat16
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return linear(F.gelu(linear(x, self.fc1, self.half)), self.fc2, self.half)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention without qkv bias
-    (``Point_MAE_unify.py:245-269``), written out as matrix products."""
+    (``Point_MAE_unify.py:245-269``), written out as matrix products. With
+    ``compute_dtype`` bf16 the four products are ``half_matmul``s: q, k, v
+    and the probabilities enter theirs as bf16, the scores and the softmax
+    stay float32 (``upp_tpu/models/scan_blocks.py:336-351``)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.half = compute_dtype == torch.bfloat16
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.proj = nn.Linear(dim, dim)
 
@@ -179,11 +291,11 @@ class Attention(nn.Module):
         B, N, C = x.shape
         H = self.num_heads
         hd = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        qkv = linear(x, self.qkv, self.half).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                     # [B, H, N, hd]
-        attn = torch.softmax((q @ k.transpose(-2, -1)) * hd ** -0.5, dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out)
+        attn = torch.softmax(matmul(q, k.transpose(-2, -1), self.half) * hd ** -0.5, dim=-1)
+        out = matmul(attn, v, self.half).transpose(1, 2).reshape(B, N, C)
+        return linear(out, self.proj, self.half)
 
 
 class Adapter(nn.Module):
@@ -215,11 +327,18 @@ class Encoder(nn.Module):
     both BatchNorms' statistics, as the reference encodes all groups before
     its mask select (``Point_MAE_cp.py:352-357``), and the last conv and
     pool run on the visible groups only (``upp_tpu/models/layers.py:224-228``).
-    Gathering before the encoder would change the statistics."""
+    Gathering before the encoder would change the statistics.
 
-    def __init__(self, encoder_channel: int):
+    ``compute_dtype`` bf16 (``Point_MAE``'s ``if_half``) runs each conv as
+    flax's ``Dense(dtype=bfloat16)`` does: a ``half_matmul`` rounded to
+    bf16, plus the bias rounded to bf16; each BatchNorm normalises in
+    float32 and its output is cast back to bf16; the tokens come out
+    float32 (``upp_tpu/models/layers.py:205-230``)."""
+
+    def __init__(self, encoder_channel: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.encoder_channel = encoder_channel
+        self.half = compute_dtype == torch.bfloat16
         self.first_conv = nn.Sequential(
             PointConv(3, 128), BatchNorm1d(128, eps=BN_EPS), nn.ReLU(),
             PointConv(128, 256))
@@ -227,21 +346,32 @@ class Encoder(nn.Module):
             PointConv(512, 512), BatchNorm1d(512, eps=BN_EPS), nn.ReLU(),
             PointConv(512, encoder_channel))
 
+    def _conv(self, conv: PointConv, x: torch.Tensor) -> torch.Tensor:
+        if not self.half:
+            return conv(x)
+        w = conv.weight.reshape(conv.weight.shape[0], -1)
+        return half_matmul(x, w.t()).bfloat16() + conv.bias.bfloat16()
+
+    def _bn(self, bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return bn(x.float()).bfloat16() if self.half else bn(x)
+
     def forward(self, point_groups, vis_idx: Optional[torch.Tensor] = None):
         bs, g, n, _ = point_groups.shape
-        x = self.first_conv(point_groups.reshape(bs * g * n, 3))
-        x = x.reshape(bs * g, n, 256)
+        fc, sc = self.first_conv, self.second_conv
+        x = fc[2](self._bn(fc[1], self._conv(fc[0], point_groups.reshape(bs * g * n, 3))))
+        x = self._conv(fc[3], x).reshape(bs * g, n, 256)
         g_max = x.amax(1, keepdim=True).expand(-1, n, -1)
         x = torch.cat([g_max, x], dim=-1).reshape(bs * g * n, 512)
-        x = self.second_conv[1](self.second_conv[0](x))
+        x = self._bn(sc[1], self._conv(sc[0], x))
         if vis_idx is not None:
             g = vis_idx.shape[1]
             x = torch.gather(x.reshape(bs, -1, n, 512), 1,
                              vis_idx[:, :, None, None].expand(-1, -1, n, 512))
             x = x.reshape(bs * g * n, 512)
-        x = self.second_conv[3](self.second_conv[2](x))
+        x = self._conv(sc[3], sc[2](x))
         x = x.reshape(bs * g, n, self.encoder_channel).amax(1)
-        return x.reshape(bs, g, self.encoder_channel)
+        x = x.reshape(bs, g, self.encoder_channel)
+        return x.float() if self.half else x
 
 
 def positional_embedding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:

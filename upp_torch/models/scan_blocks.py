@@ -24,7 +24,11 @@ as the reference's plain blocks (``upp_tpu/models/scan_blocks.py:112-116``).
 In ``.train()`` block ``i`` of a stack of depth L drops its residual
 branches per sample at rate ``drop_path_rate * i / (L - 1)``
 (``upp_tpu/models/scan_blocks.py:222-224``), drawn from the ``generator``
-a pass is given, else from torch's RNG.
+a pass is given, else from torch's RNG. ``compute_dtype`` bf16 (the
+config's ``if_half``) makes every block's attention and MLP products bf16
+with float32 accumulation (``layers.half_matmul``); the adapters, the
+propagation, the residuals and every LayerNorm stay float32, as in
+``upp_tpu/models/scan_blocks.py:336-376``.
 """
 
 from __future__ import annotations
@@ -52,16 +56,17 @@ class PromptedBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  adapters: Sequence[str] = (), prompts: Optional[Dict[str, int]] = None,
-                 drop_path_rate: float = 0.0, plain: bool = False):
+                 drop_path_rate: float = 0.0, plain: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         prompts = prompts or {}
         if plain and (adapters or prompts):
             raise ValueError("a plain block takes no adapters and no prompts")
         self.drop_path_rate = drop_path_rate
         self.norm1 = layer_norm(dim)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, compute_dtype)
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), compute_dtype)
         if not plain:
             self.bnorm = nn.BatchNorm1d(dim, eps=BN_EPS)
         for path in adapters:
@@ -190,7 +195,8 @@ class ScannedEncoderStack(nn.Module):
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, prompter: PrompterConfig = PrompterConfig(),
-                 drop_path_rate: float = 0.0, plain: bool = False):
+                 drop_path_rate: float = 0.0, plain: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         p = PrompterConfig() if plain else prompter
         self.depth = depth
@@ -210,7 +216,7 @@ class ScannedEncoderStack(nn.Module):
                           prompts={q: getattr(p, f"{q}_prompts_num") for q in PATHS
                                    if i < self.prompt_len[q]},
                           drop_path_rate=block_drop_path(drop_path_rate, i, depth),
-                          plain=plain)
+                          plain=plain, compute_dtype=compute_dtype)
             for i in range(depth))
 
     def forward(self, x, pos, *, path: str, classification: bool = False,
@@ -236,13 +242,13 @@ class ScannedDecoderStack(nn.Module):
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, drop_path_rate: float = 0.0,
-                 plain: bool = False):
+                 plain: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.blocks = nn.ModuleList(
             PromptedBlock(embed_dim, num_heads, mlp_ratio,
                           adapters=() if plain else ("pretask",),
                           drop_path_rate=block_drop_path(drop_path_rate, i, depth),
-                          plain=plain)
+                          plain=plain, compute_dtype=compute_dtype)
             for i in range(depth))
         self.adapter_len = 0 if plain else depth
         self.norm = layer_norm(embed_dim)

@@ -9,7 +9,10 @@ centers, 4-block decoder, dense rebuild, re-FPS) and downstream (12 blocks
 with prompt propagation) → classification head. Both models train: in
 ``.train()`` every pass runs in train mode, as the JAX package's
 ``deterministic=False`` does (BatchNorm on batch statistics, the encoder's
-updated once per pass in order; dropout; drop-path).
+updated once per pass in order; dropout; drop-path). The config's
+``if_half: True`` runs both block stacks (the backbone and the decoder) in
+bf16 products with float32 accumulation (``layers.half_matmul``); the
+encoder, heads and prompters stay float32 (``upp_tpu/models/unify.py:86-100``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..utils.config import to_config
 from .blocks import PrompterConfig
 from .build import MODELS
 from .layers import (BN_EPS, BatchNorm1d, Dropout, Encoder, PointConv, PosEmbedMLP,
-                     TwoLayerHead, layer_norm)
+                     TwoLayerHead, compute_dtype, layer_norm)
 from .prompter import RectifyPrompter
 from .scan_blocks import ScannedDecoderStack, ScannedEncoderStack
 
@@ -51,10 +54,11 @@ class _UnifyCore(nn.Module):
 
     vis_short = 16
 
-    def __init__(self, cfg, num_group: Optional[int] = None):
+    def __init__(self, cfg, num_group: Optional[int] = None, if_half: bool = False):
         """``num_group``: the group count of the rectify and completion
         geometry, the config's unless given (the segmentation model keeps
-        64 while its downstream pass groups ``cfg.num_group``)."""
+        64 while its downstream pass groups ``cfg.num_group``); ``if_half``:
+        bf16 products in the block stacks."""
         super().__init__()
         tc = cfg.transformer_config
         trans_dim, group_size = tc.trans_dim, cfg.group_size
@@ -72,7 +76,7 @@ class _UnifyCore(nn.Module):
         self.blocks = ScannedEncoderStack(
             trans_dim, tc.depth, tc.num_heads,
             prompter=PrompterConfig.from_cfg(cfg.get("prompter_config")),
-            drop_path_rate=drop_path_rate)
+            drop_path_rate=drop_path_rate, compute_dtype=compute_dtype(if_half))
         self.norm = layer_norm(trans_dim)
         self.shape_pred = TwoLayerHead(trans_dim, trans_dim // 2, self.vis_short)
         self.coarse_pred = TwoLayerHead(self.vis_short * self.vis_num, trans_dim,
@@ -81,7 +85,8 @@ class _UnifyCore(nn.Module):
         self.decoder_pos_embed = PosEmbedMLP(trans_dim)
         self.MAE_decoder = ScannedDecoderStack(trans_dim, tc.decoder_depth,
                                                tc.decoder_num_heads,
-                                               drop_path_rate=drop_path_rate)
+                                               drop_path_rate=drop_path_rate,
+                                               compute_dtype=compute_dtype(if_half))
         self.dense_pred = nn.Sequential(PointConv(trans_dim, 3 * group_size))
         self.rectify_prompter = RectifyPrompter(hidden_dimension=trans_dim)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, trans_dim))
@@ -110,19 +115,24 @@ class _UnifyCore(nn.Module):
         → coarse missing centers → propagated mask tokens → decoder → dense
         rebuild. Returns (predict_center [B,M,3], rebuild [B,M*S,3])."""
         g = group_points(pts, self.vis_num, 16)
-        x_vis = self.encoder(g.neighborhood)
-        x_vis = self.blocks(x_vis, self.pos_embed(g.center), path="pretask")
+        return self.complete_tokens(self.encoder(g.neighborhood), g.center)
+
+    def complete_tokens(self, x_vis: torch.Tensor, center: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The completion pass from the visible tokens [B, vis_num, C] and
+        their centres [B, vis_num, 3] on."""
+        x_vis = self.blocks(x_vis, self.pos_embed(center), path="pretask")
         x_vis = self.norm(x_vis)
 
-        B = pts.shape[0]
-        pos_emd_vis = self.decoder_pos_embed(g.center)
+        B = x_vis.shape[0]
+        pos_emd_vis = self.decoder_pos_embed(center)
         shape_feature = self.shape_pred(x_vis).reshape(B, self.vis_short * self.vis_num)
         predict_center = self.coarse_pred(shape_feature).reshape(B, -1, 3)
         predict_token = self.predict_token_generator(x_vis)
         pos_emd_mask = self.decoder_pos_embed(predict_center)
         n_mask = predict_center.shape[1]
         mask_token = self.mask_token.expand(B, n_mask, -1)
-        mask_token = propagate(predict_center, g.center, mask_token,
+        mask_token = propagate(predict_center, center, mask_token,
                                predict_token, de_neighbors=6)
         x_full = torch.cat([x_vis, mask_token], dim=1)
         pos_full = torch.cat([pos_emd_vis, pos_emd_mask], dim=1)
@@ -138,7 +148,7 @@ class PointMAEUnify(_UnifyCore):
 
     def __init__(self, config: Any):
         cfg = to_config(config)
-        super().__init__(cfg)
+        super().__init__(cfg, if_half=bool(cfg.get("if_half", False)))
         semantics = cfg.get("propagation_semantics", "reference")
         if semantics not in ("reference", "clean"):
             raise ValueError(f"propagation_semantics {semantics!r}: 'reference' "
@@ -200,7 +210,8 @@ class PointMAEPretask(_UnifyCore):
     as in the JAX package: no pretask pass propagates prompts."""
 
     def __init__(self, config: Any):
-        super().__init__(to_config(config))
+        cfg = to_config(config)
+        super().__init__(cfg, if_half=bool(cfg.get("if_half", False)))
 
     def forward(self, pts: torch.Tensor, *, point_num: int = 2048,
                 train_with_gaussian: bool = True):

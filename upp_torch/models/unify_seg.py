@@ -125,7 +125,7 @@ class PointMAEUnifySeg(_UnifyCore, _SegTail):
         cfg = to_config(config)
         # the seg front end keeps the 64-group completion geometry whatever
         # num_group the downstream pass uses (``Point_MAE_unify_segment.py:343``)
-        super().__init__(cfg, num_group=64)
+        super().__init__(cfg, num_group=64, if_half=bool(cfg.get("if_half", False)))
         self._init_tail(self.trans_dim, len(self.blocks.blocks), cfg.cls_dim, neighbors=3)
         self.prompt_propagation_after = bool(cfg.get("prompt_propagation_after", False))
         # the shipped seg config gathers per sample (gather_idx True), into

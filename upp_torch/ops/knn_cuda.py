@@ -7,7 +7,9 @@ instead. The library is built at first use (see ``cuda_build``), never at
 import.
 
 The kernel runs a warp per query, 8 queries per block, over its cloud staged
-in shared memory; one variant serves every shape within the limits below.
+in shared memory, keeping one (distance, index) key a lane for k <= 32 and
+two for 32 < k <= 64 (two template instances of one kernel); the library
+picks by k.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from . import cuda_build
 
-MAX_K = 32       # csrc/knn.cu kMaxK: one kept key per lane of the query's warp
+MAX_K = 64       # csrc/knn.cu kMaxK: two kept keys per lane of the query's warp
 MAX_N = 16384    # csrc/knn.cu kMaxN: the cloud is staged in shared memory
 
 

@@ -2,7 +2,11 @@
 ``upp_tpu/train/optim.py``; reference ``tools/builder.py:37-89``).
 
 * AdamW over ALL parameters, with a no-decay group for 1-D parameters,
-  biases and anything with "token" in its name (``builder.py:40-55``).
+  biases and anything with "token" in its name (``builder.py:40-55``);
+  ``Adam`` (``optax.adam``: no weight decay) and ``SGD`` (Nesterov,
+  ``momentum`` from the kwargs, 0.9 by default, no weight decay) as the
+  JAX package builds them (``upp_tpu/train/optim.py:264-290``). Each clips
+  the gradients of the trainable parameters first and steps only those.
 * CosLR is timm's ``CosineLRScheduler(t_initial=epochs, lr_min=1e-6,
   warmup_lr_init=1e-6, warmup_t=initial_epochs)`` stepped per epoch, here a
   per-step schedule through ``steps_per_epoch``; LambdaLR, StepLR and a
@@ -182,22 +186,28 @@ def step_generator(gens: dict, device: torch.device, seed: int,
 
 
 def build_optimizer(config, model: nn.Module, steps_per_epoch: int) -> ScheduledOptimizer:
-    """AdamW over every parameter of ``model`` in the reference's two decay
-    groups, on the config's schedule, ``grad_norm_clip`` and
-    ``step_per_update``. Which parameters train is ``requires_grad``
-    (``set_trainable``), which may change later without rebuilding the
-    optimizer."""
+    """The config's optimizer (``AdamW`` over every parameter of ``model``
+    in the reference's two decay groups, ``Adam`` or Nesterov ``SGD``) on
+    its schedule, ``grad_norm_clip`` and ``step_per_update``. Which
+    parameters train is ``requires_grad`` (``set_trainable``), which may
+    change later without rebuilding the optimizer."""
     opti_cfg = config.optimizer
-    if opti_cfg.type != "AdamW":
-        raise NotImplementedError(f"optimizer type {opti_cfg.type!r}: only AdamW "
-                                  "is ported so far")
-    wd = float(opti_cfg.kwargs.get("weight_decay", 0.0))
-    decay, no_decay = [], []
-    for name, p in model.named_parameters():
-        (no_decay if no_weight_decay(name, p) else decay).append(p)
-    opt = torch.optim.AdamW([{"params": no_decay, "weight_decay": 0.0},
-                             {"params": decay, "weight_decay": wd}],
-                            lr=float(opti_cfg.kwargs.lr), weight_decay=wd)
+    lr = float(opti_cfg.kwargs.lr)
+    if opti_cfg.type == "AdamW":
+        wd = float(opti_cfg.kwargs.get("weight_decay", 0.0))
+        decay, no_decay = [], []
+        for name, p in model.named_parameters():
+            (no_decay if no_weight_decay(name, p) else decay).append(p)
+        opt = torch.optim.AdamW([{"params": no_decay, "weight_decay": 0.0},
+                                 {"params": decay, "weight_decay": wd}],
+                                lr=lr, weight_decay=wd)
+    elif opti_cfg.type == "Adam":
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+    elif opti_cfg.type == "SGD":
+        opt = torch.optim.SGD(model.parameters(), lr=lr, nesterov=True,
+                              momentum=float(opti_cfg.kwargs.get("momentum", 0.9)))
+    else:
+        raise NotImplementedError(f"optimizer type {opti_cfg.type!r}: AdamW, Adam or SGD")
     clip = config.get("grad_norm_clip")
     return ScheduledOptimizer(opt, build_schedule(opti_cfg, config.scheduler,
                                                   steps_per_epoch),

@@ -16,7 +16,13 @@ its import shim):
   label_conv.{0,1,3,4}                 → label_conv/{conv0,bn0,conv1,bn1}
   propagation_0.mlp_{convs,bns}.{i}    → propagation_0/{conv,bn}{i}
   seg_head.{0,1,4,5,7}                 → seg_head/{conv0,bn0,conv1,bn1,conv2}
+  mask_prompter.*                      → mask_prompter/* (``Point_MAE_pretask``:
+                                         beside core/, named as rectify_prompter)
   ...
+
+A module whose JAX counterpart declares its leaves flat
+(``AdapterSuper``'s ``ln1_kernel``, ``ln2_bias``) takes them as
+``ln1.weight`` ← ``ln1_kernel``.
 
 ``core/`` is left out for a model whose JAX tree has none
 (``PointTransformer_seg``, ``Point_MAE``, ``PointTransformer``), and
@@ -53,10 +59,10 @@ _RENAMES = [
      r"\1/lin1"),
     (r"^dense_pred\.0$", "dense_pred_conv"),
     (r"^increase_dim\.0$", "increase_dim_conv"),
-    (r"^rectify_prompter\.(\w+)\.mlp_convs\.(\d+)$", r"rectify_prompter/\1/conv\2"),
-    (r"^rectify_prompter\.(\w+)\.mlp_bns\.(\d+)$", r"rectify_prompter/\1/bn\2"),
-    (r"^rectify_prompter\.score_head\.0$", "rectify_prompter/score0"),
-    (r"^rectify_prompter\.score_head\.3$", "rectify_prompter/score1"),
+    (r"^(rectify|mask)_prompter\.(\w+)\.mlp_convs\.(\d+)$", r"\1_prompter/\2/conv\3"),
+    (r"^(rectify|mask)_prompter\.(\w+)\.mlp_bns\.(\d+)$", r"\1_prompter/\2/bn\3"),
+    (r"^(rectify|mask)_prompter\.score_head\.0$", r"\1_prompter/score0"),
+    (r"^(rectify|mask)_prompter\.score_head\.3$", r"\1_prompter/score1"),
     (r"^cls_head_finetune\.0$", "cls_head_finetune/lin0"),
     (r"^cls_head_finetune\.1$", "cls_head_finetune/bn0"),
     (r"^cls_head_finetune\.4$", "cls_head_finetune/lin1"),
@@ -77,7 +83,7 @@ _RENAMES = [
 # outside core/ (the unify models' shared submodules live under it; the
 # PointTransformer_seg tree has no core/ at all)
 _TOP_LEVEL = ("cls_token", "cls_pos", "cls_head_finetune", "label_conv",
-              "propagation_0", "seg_head")
+              "propagation_0", "seg_head", "mask_prompter")
 _BLOCK = re.compile(r"^(blocks\.blocks|MAE_decoder\.blocks)\.(\d+)\.(.+)$")
 _STACKS = {"blocks.blocks": "blocks", "MAE_decoder.blocks": "MAE_decoder/blocks"}
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
@@ -141,6 +147,8 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
                 fpath = f"{core}{fpath}"
             path = f"{fpath}/{_leaf(leaf, mod in norms)}"
             coll = stats if leaf.startswith("running_") else params
+        if path not in coll and path.count("/") and "_".join(path.rsplit("/", 1)) in coll:
+            path = "_".join(path.rsplit("/", 1))       # a flat leaf: ln1/kernel → ln1_kernel
         if path not in coll:
             raise KeyError(f"{key}: no JAX variable {path!r}")
         val = coll[path] if row is None else coll[path][row]
