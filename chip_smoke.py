@@ -202,6 +202,13 @@ Phases, each fatal on failure:
      gaps printed, not held (its rectify sort and FPS re-sampling reorder
      near ties under bf16 rounding, as the CPU tests hold the passes one
      by one for);
+36b. the noisy bf16 cls PEFT step's passes one by one, card vs CPU (both
+     bf16, train mode, dropout and drop-path off, batch 8, phase 12's
+     draws): rectify on the corrupted clouds, completion on the CPU's
+     rectified cloud, downstream on the CPU's re-sampled cloud; each pass's
+     outputs (rectification vectors; centres and rebuild; logits) within
+     2e-2 of their largest, and the counts of rectify sort ranks and FPS
+     re-sampling picks that differ between card and CPU printed;
  37. legacy pretask train: ``Point_MAE_pretask`` at the width of
      ``cfgs/pretask.yaml`` (its synthetic twin with the model's NAME set in
      memory), batch 64: as phase 7 (launch counts of one step, finite
@@ -214,7 +221,31 @@ Phases, each fatal on failure:
  40. ``AdapterSuper``/``AdapterSuperF`` at width 384 on the card against
      the CPU (rtol 1e-4), with and without ``sample_embed_dim``; and
      ``runner_vis.test_net`` with 2 items on the card and on the CPU: the
-     saved clouds (FPS outputs) equal.
+     saved clouds (FPS outputs) equal;
+ 41. the patch denoiser's kernels against their plain versions (batch 1):
+     FPS variant 6 (N > 16384, a 16-block cluster a cloud) index-identical
+     at 16385 → 512, 50000 → 150, 150000 → 50000, 30000 → 10000, 10000 →
+     30, masked 20000 → 256, its limit 262144 → 256 and a 60000-point tie
+     cloud → 6000; the large-k kNN (``csrc/knn_select.cu``) index-identical
+     with bit-equal distances and ``knn_points``' gather equal at (1, 150,
+     50000, k=1000), (1, 30, 10000, 1000), (4, 64, 16385, 65), (2, 8, 2048,
+     1024) and (1, 4, 100000, 500) (distances in global scratch), on noisy
+     sphere clouds and tie clouds; kernel, plain and ``torch.cdist`` +
+     ``topk`` ms; every FPS variant run over phases 2 and 41;
+ 42. ``utils/denoise.patch_based_denoise`` with an affine stand-in for the
+     denoiser network at 50000 and 10000 points: launch counts (FPS 2,
+     large-k kNN 1), ms a cloud and of each step, the 10000-point result
+     bit-equal to the port's CPU run;
+ 43. ``utils/profiling.profile_train_step`` on the cls config at batch 120
+     with the deep rows (the table printed), and a ``maybe_trace`` of one
+     annotated PEFT step holding the ``annotate`` ranges;
+ 44. ``remat_blocks``: the cls PEFT step at batch 120, float32 and bf16,
+     with and without remat, from the same weights and draws (deterministic
+     algorithms, warn only): gradients, updated parameters and BatchNorm
+     buffers bit-equal; ms per step and peak memory;
+ 45. ``save_checkpoint`` of the flagship classifier with ``block=True`` and
+     ``block=False`` (the training thread's wait), then
+     ``wait_for_pending_saves``; the files equal.
 Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
 clouds and on tie-heavy grid clouds of 2048 points; FPS, kNN and Chamfer at
 the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32 points) and
@@ -235,8 +266,11 @@ of one fine-tune cls train step; Chamfer's of one pretask and of one
 pretrain train step; all three kernels' of one PoinTr and of one AdaPoinTr
 train step, of one legacy pretask train step and of the bf16 cls, pretask
 and pretrain train steps; each entry names its ``path``) and the card's
-name and power limit; the last line is the ``{"ok": true, "device": ...}``
-JSON object.
+name and power limit; the ``kernels`` line also has fps and knn_select
+entries for one ``patch_based_denoise`` of 50000 points (phase 42's
+launches, phase 41's times; knn_select's ``library_ms`` is
+``torch.cdist`` + ``topk``); the last line is the ``{"ok": true,
+"device": ...}`` JSON object.
 """
 
 from __future__ import annotations
@@ -441,6 +475,9 @@ KERNEL_SOURCES = {
     "fps": ("upp_torch/csrc/fps.cu", "upp_tpu/ops/fps_pallas.py:38"),
     "knn": ("upp_torch/csrc/knn.cu", "upp_tpu/ops/knn_pallas.py:48"),
     "chamfer": ("upp_torch/csrc/chamfer.cu", "upp_tpu/ops/chamfer_pallas.py:44"),
+    # k > 64 or N > 16384: XLA top_k in JAX, where the Pallas kNN kernel
+    # refuses k > 42 (upp_tpu/ops/knn_pallas.py:250-261)
+    "knn_select": ("upp_torch/csrc/knn_select.cu", "upp_tpu/ops/knn_pallas.py:48"),
 }
 
 
@@ -478,6 +515,8 @@ def _wrappers():
     """(name, module, attribute, key of a call) of each kernel wrapper."""
     from upp_torch.ops import chamfer_cuda, fps_cuda, knn_cuda
     return (
+        ("knn_select", knn_cuda, "knn_select",
+         lambda query, points, k: ("knn_select", query.shape[1], points.shape[1], k)),
         ("fps", fps_cuda, "fps_idx",
          lambda xyz, n_samples, valid=None, start_idx=None:
              ("fps", xyz.shape[1], n_samples, valid is not None)),
@@ -583,7 +622,7 @@ def kernel_shapes():
             + [(c, B_WIDE) for c in KNN_WIDE_CALLS])
 
 
-def _check_fps(call, clouds, gen):
+def _check_fps(call, clouds, gen, reps=10, plain_reps=2):
     from upp_torch.ops import fps_cuda
     from upp_torch.ops.corrupt import _crop_masks
     from upp_torch.ops.fps import fps_plain_idx
@@ -602,8 +641,10 @@ def _check_fps(call, clouds, gen):
         bad = (k_idx.long() != p_idx).sum().item()
         raise AssertionError(f"FPS {call}: {bad} indices differ from the plain version")
     err = (index_points(xyz, k_idx.long()) - index_points(xyz, p_idx)).abs().max().item()
-    ms = cuda_ms(lambda: fps_cuda.fps_idx(xyz, s, valid, start), reps=10)
-    plain_ms = cuda_ms(lambda: fps_plain_idx(xyz, s, valid, start), reps=2, warmup=1)
+    FPS_N_RUN.add(n)
+    ms = cuda_ms(lambda: fps_cuda.fps_idx(xyz, s, valid, start), reps=reps)
+    plain_ms = cuda_ms(lambda: fps_plain_idx(xyz, s, valid, start), reps=plain_reps,
+                       warmup=min(plain_reps, 1))
     return err, ms, plain_ms
 
 
@@ -633,6 +674,7 @@ def _check_knn(call, clouds):
 
 
 CHAMFER_VARIANTS_RUN = set()   # (y resident, masked) of every Chamfer check
+FPS_N_RUN = set()              # N of every FPS check (phases 2 and 41)
 
 
 def _check_chamfer(call, clouds, gen):
@@ -750,9 +792,10 @@ def phase_kernel_ties_and_edges(card):
     fps_n |= {c[1] for c in EDGE_CALLS if c[0] == "fps"}
     variants = {n: fps_cuda.variant(n) for n in sorted(fps_n)}
     print(f"[kernel variants] FPS variant by N: {variants}", flush=True)
-    if set(variants.values()) != set(range(fps_cuda.num_variants())):
+    # variant 6 (N > 16384) runs in phase 41, which checks all seven
+    if set(variants.values()) != set(range(fps_cuda.num_variants() - 1)):
         raise AssertionError(f"FPS variants run {set(variants.values())}, of "
-                             f"{fps_cuda.num_variants()}")
+                             f"{fps_cuda.num_variants() - 1} below 16384 points")
     print(f"[kernel variants] Chamfer (y resident, masked) run: "
           f"{sorted(CHAMFER_VARIANTS_RUN)}", flush=True)
     if CHAMFER_VARIANTS_RUN != {(s, m) for s in (False, True) for m in (False, True)}:
@@ -959,14 +1002,15 @@ def check_calls(name, rec, want):
 
 
 def kernel_entry(name, rows, table, launches, bsz, path):
-    """The ``kernels`` JSON entry of one kernel on one path: ms, plain and
-    bound summed over one step's calls (``table``, at batch ``bsz``) from
-    the per-shape rows."""
+    """The ``kernels`` JSON entry of one kernel on one path: ms, plain,
+    library (where every call has one) and bound summed over one step's
+    calls (``table``, at batch ``bsz``) from the per-shape rows."""
     src, replaces = KERNEL_SOURCES[name]
     mine = [(r, table[tuple(r["call"])]) for r in rows
             if r["call"][0] == name and r["batch"] == bsz and tuple(r["call"]) in table]
     t_bytes = sum(r["bytes"] * c for r, c in mine) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(r["ops"] * c for r, c in mine) / F32_FLOP_PER_S * 1e3
+    lib = [r.get("library_ms") for r, _ in mine]
     return {"name": name, "path": path, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["call"][0] == name),
@@ -974,7 +1018,8 @@ def kernel_entry(name, rows, table, launches, bsz, path):
             "plain_ms": sum(r["plain_ms"] * c for r, c in mine),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": (None if None in lib
+                           else sum(x * c for x, (_, c) in zip(lib, mine)))}
 
 
 def no_dropout(model):
@@ -1230,6 +1275,23 @@ def phase_cls_train(clouds, labels, config, card, device, backward_ms):
     return counts, step_ms
 
 
+def cpu_draws(bsz):
+    """Every random draw of a cls train step at batch ``bsz``, made on the
+    CPU from a seed (card and CPU then see the same corruption)."""
+    from upp_torch.train.pipeline import CorruptDraws, point_all_for
+    gen = torch.Generator().manual_seed(SEED + 5)
+    v = torch.randn((bsz, 3), generator=gen)
+    return CorruptDraws(
+        viewpoints=v / torch.linalg.norm(v, dim=-1, keepdim=True),
+        lidar_idx=torch.randint(0, NPOINTS, (48,), generator=gen),
+        lidar_factor=1.2 + 0.3 * torch.rand((48,), generator=gen),
+        shell_normal=torch.randn((bsz, 24, 3), generator=gen),
+        aug_scale=2 / 3 + (3 / 2 - 2 / 3) * torch.rand((bsz, 1, 3), generator=gen),
+        aug_shift=0.2 * (2 * torch.rand((bsz, 1, 3), generator=gen) - 1),
+        # the FPS-column pick of a step without the noisy passes
+        choice=torch.randperm(point_all_for(NPOINTS, N_POINTS), generator=gen)[:NPOINTS])
+
+
 def phase_cls_card_vs_cpu(clouds, labels, config, card, device, stages=None, tag="cls",
                           rtol=1e-3, atol=2e-3, grad_rtol=1e-2, hold=True):
     """One cls train step at batch 8 in each of ``stages``, (name, trainable
@@ -1239,23 +1301,13 @@ def phase_cls_card_vs_cpu(clouds, labels, config, card, device, stages=None, tag
     (the norm compared is the gradients' own): the loss within
     ``rtol``/``atol``, the norm within ``grad_rtol``; with ``hold`` False
     the gaps are printed and only finiteness is held."""
+    from upp_torch.train.pipeline import CorruptDraws
     from upp_torch.train.runner_cls import JOINT_PEFT_LIST, PEFT_LIST
     stages = stages or (("PEFT", PEFT_LIST), ("joint", JOINT_PEFT_LIST))
-    from upp_torch.train.pipeline import CorruptDraws, point_all_for
     config = copy.deepcopy(config)
     config.grad_norm_clip = None
     bsz = B_CPU
-    gen = torch.Generator().manual_seed(SEED + 5)
-    v = torch.randn((bsz, 3), generator=gen)
-    draws = CorruptDraws(
-        viewpoints=v / torch.linalg.norm(v, dim=-1, keepdim=True),
-        lidar_idx=torch.randint(0, NPOINTS, (48,), generator=gen),
-        lidar_factor=1.2 + 0.3 * torch.rand((48,), generator=gen),
-        shell_normal=torch.randn((bsz, 24, 3), generator=gen),
-        aug_scale=2 / 3 + (3 / 2 - 2 / 3) * torch.rand((bsz, 1, 3), generator=gen),
-        aug_shift=0.2 * (2 * torch.rand((bsz, 1, 3), generator=gen) - 1),
-        # the FPS-column pick of a step without the noisy passes
-        choice=torch.randperm(point_all_for(NPOINTS, N_POINTS), generator=gen)[:NPOINTS])
+    draws = cpu_draws(bsz)
     for stage, peft in stages:
         results = []
         for dev in (device, torch.device("cpu")):
@@ -2268,7 +2320,8 @@ def phase_adapointr_styles(comp, card, device):
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
     vals = {k: float(v) for k, v in terms.items()}
-    if not all(np.isfinite(v) for v in vals.values()) or min(counts.values()) < 1:
+    if (not all(np.isfinite(v) for v in vals.values())
+            or min(counts[k] for k in ("fps", "knn", "chamfer")) < 1):
         raise AssertionError(f"adapointr styles: terms {vals}, launches {counts}")
     deform = [(n, m) for n, m in model.named_modules() if isinstance(
         m, (DeformableLocalAttention, DeformableLocalCrossAttention, DeformableGraphAttention))]
@@ -2465,6 +2518,69 @@ def phase_half_cls_logits(clouds, config, card, device):
           f"{diff / top:.3g} of the largest (bound 2e-2) ({card})", flush=True)
 
 
+def phase_half_cls_passes(clouds, config, card, device):
+    """Phase 36b: the noisy bf16 cls PEFT step's three passes of
+    ``PointMAEUnify`` one by one, on the card and on the CPU, both bf16 in
+    train mode (dropout and drop-path off) from the same weights, at batch
+    8: rectify on the CPU-corrupted clouds (phase 12's draws), completion
+    on the CPU's rectified cloud, downstream on the CPU's re-sampled cloud,
+    so that no pass inherits the previous pass's reordering. Each pass's
+    outputs within 2e-2 of their largest (the bound of phase 36): the
+    rectification vectors, the completion's centres and rebuild, the
+    logits. Prints how many ranks of the rectify score sort (its top-5%
+    drop) and how many FPS picks of the completion's re-sampling differ
+    between card and CPU. Returns the counts."""
+    from upp_torch.train.pipeline import corrupt_batch
+    from upp_torch.train.runner_cls import init_model
+    args = types.SimpleNamespace(seed=SEED)
+    half = half_config(config)
+    cpu = torch.device("cpu")
+    models = {d: no_dropout(init_model(args, half, d)).train() for d in (device, cpu)}
+    pts = corrupt_batch(clouds[:B_CPU].cpu(), npoints=NPOINTS, n_points_dataset=N_POINTS,
+                        noisy_train=True, incomplete_cropping=True,
+                        augmentation=half.get("data_augmentation"), draws=cpu_draws(B_CPU))
+    held, counts = [], {}
+
+    def hold(name, got, want):
+        diff, top = (got.cpu() - want).abs().max().item(), want.abs().max().item()
+        if not (np.isfinite(diff) and diff <= 2e-2 * top):
+            raise AssertionError(f"cls bf16 passes card vs CPU: {name} differs by {diff} "
+                                 f"(largest {top}) with its input handed across")
+        held.append(f"{name} {diff / top:.3g}")
+
+    with torch.no_grad():
+        vec = {d: models[d].rectify_vectors(pts.to(d)) for d in models}
+        hold("rectify vectors", vec[device], vec[cpu])
+        rect = {d: models[d].drop_noisiest(pts.to(d), vec[d], NPOINTS) for d in models}
+        order = {d: rect[d][1].cpu() for d in models}
+        counts["rectify ranks"] = int((order[device] != order[cpu]).sum())
+        keep = -int(NPOINTS * 0.95)
+        counts["rectify drop"] = sum(           # points dropped on one side only
+            len(set(a[:keep].tolist()) - set(b[:keep].tolist()))
+            for a, b in zip(order[device], order[cpu]))
+        cloud = rect[cpu][0]
+        comp = {d: models[d].complete_and_resample(cloud.to(d), NPOINTS) for d in models}
+        for name, got, want in zip(("completion centres", "rebuild"), comp[device][1],
+                                   comp[cpu][1]):
+            hold(name, got, want)
+        for name, got, want in zip(("fps picks of the rebuild", "fps picks of the cloud"),
+                                   comp[device][2], comp[cpu][2]):
+            if want is not None:
+                counts[name] = int((got.cpu() != want).sum())
+        cloud = comp[cpu][0]
+        logits = {d: models[d](cloud.to(d)) for d in models}
+        hold("downstream logits", logits[device], logits[cpu])
+    print(f"[cls bf16 passes card vs cpu] B={B_CPU}, each pass on the CPU's input: "
+          f"{', '.join(held)} of the largest (bound 2e-2); differing between card and CPU: "
+          f"{counts['rectify ranks']} of {rect[cpu][1].numel()} rectify sort ranks, "
+          f"{counts['rectify drop']} of {-keep * B_CPU} points dropped by the top-5% drop on "
+          f"one side only, {counts['fps picks of the rebuild']} of "
+          f"{comp[cpu][2][0].numel()} FPS picks of the rebuild and "
+          f"{counts['fps picks of the cloud']} of {comp[cpu][2][1].numel()} of the joined "
+          f"cloud ({card})", flush=True)
+    return counts
+
+
 def legacy_config(pretask_config):
     """The pretask config with the legacy model ``Point_MAE_pretask``."""
     legacy = copy.deepcopy(pretask_config)
@@ -2554,6 +2670,261 @@ def phase_tools(clouds, card, device):
           f"equal the CPU's ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 41-45: patch denoising (FPS past 16384 points, the large-k kNN),
+# the profiling tools, remat_blocks and the asynchronous checkpoint writer
+
+# FPS variant 6 (csrc/fps.cu, a cluster of 16 blocks a cloud) at the patch
+# denoiser's shapes (utils/denoise.py, the PU-Net test clouds of 10K and 50K
+# points: seeds N -> 3N/1000, re-sampling 3N -> N), at 16385 and at its limit
+DENOISE_FPS_CALLS = (("fps", 16385, 512, False), ("fps", 50000, 150, False),
+                     ("fps", 150000, 50000, False), ("fps", 30000, 10000, False),
+                     ("fps", 10000, 30, False), ("fps", 20000, 256, True),
+                     ("fps", 262144, 256, False))
+# the large-k kNN (csrc/knn_select.cu): the denoiser's patches at 50K and 10K
+# points, k = 65 past the small kernel at N = 16385, k = 1024, and an N whose
+# distances live in global scratch
+DENOISE_KNN_CALLS = ((1, 150, 50000, 1000), (1, 30, 10000, 1000), (4, 64, 16385, 65),
+                     (2, 8, 2048, 1024), (1, 4, 100000, 500))
+DENOISE_50K = Counter({("fps", 50000, 150, False): 1, ("fps", 150000, 50000, False): 1,
+                       ("knn_select", 150, 50000, 1000): 1})
+DENOISE_10K = Counter({("fps", 10000, 30, False): 1, ("fps", 30000, 10000, False): 1,
+                       ("knn_select", 30, 10000, 1000): 1})
+
+
+class AffineDenoiser:
+    """The stand-in for a score-based denoiser (the repo has no denoiser
+    network): every patch point moves to ``0.9 p + 0.01``."""
+
+    def denoise_langevin_dynamics(self, patches, step_size, denoise_knn, step_decay,
+                                  num_steps):
+        return patches * 0.9 + 0.01
+
+
+def scan_cloud(n, seed, device):
+    """[n, 3]: points on the unit sphere with N(0, 0.01^2) noise (a noisy
+    scan of a surface, as the PU-Net test clouds are)."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((n, 3))
+    p /= np.linalg.norm(p, axis=1, keepdims=True)
+    return torch.from_numpy((p + 0.01 * rng.standard_normal((n, 3))).astype(np.float32)
+                            ).to(device)
+
+
+def phase_denoise_kernels(card):
+    """Phase 41: FPS variant 6 and the large-k kNN against their plain
+    versions on the card at the denoise shapes (batch 1 unless given), on
+    noisy-sphere clouds and on tie-heavy grid clouds. FPS indices equal;
+    kNN indices equal, distances bit-equal, the gathered xyz equal. Kernel,
+    plain and ``torch.cdist`` + ``topk`` ms. Then every FPS variant must
+    have run over phases 2 and 41. Returns per-shape rows."""
+    from upp_torch.ops import fps_cuda, knn_cuda
+    from upp_torch.ops.geometry import index_points
+    from upp_torch.ops.knn import knn_plain, knn_points
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    rows = []
+    cases = [("", call, scan_cloud(call[1], i, "cuda")[None].contiguous())
+             for i, call in enumerate(DENOISE_FPS_CALLS)]
+    cases.append(("ties", ("fps", 60000, 6000, False), tie_clouds(1, 60000, gen)))
+    for kind, call, cloud in cases:
+        if fps_cuda.variant(call[1]) != 6 and call[1] > 16384:
+            raise AssertionError(f"FPS at N={call[1]}: variant {fps_cuda.variant(call[1])}")
+        err, ms, plain_ms = _check_fps(call, cloud, gen, reps=3 if call[2] > 5000 else 10,
+                                       plain_reps=1)
+        nbytes, ops = bound_parts(call, 1)
+        rows.append({"call": list(call), "batch": 1, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes, "ops": ops})
+        print(f"[denoise kernel{' ' + kind if kind else ''}] {call}: identical to plain, "
+              f"variant {fps_cuda.variant(call[1])}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"{ms / max(call[2] - 1, 1) * 1e3:.2f} us a round, bound "
+              f"{bound_ms(nbytes, ops):.4f} ms (B=1; {card})", flush=True)
+    for i, (bsz, s, n, k) in enumerate(DENOISE_KNN_CALLS):
+        for kind in ("", "ties"):
+            points = (tie_clouds(bsz, n, gen) if kind else
+                      torch.stack([scan_cloud(n, 100 + 10 * i + b, "cuda") for b in range(bsz)]))
+            query = points[:, :s].contiguous()
+            kd, ki = knn_cuda.knn_select(query, points, k)
+            pd, pi = knn_plain(query, points, k)
+            gd, gi, gn = knn_points(query, points, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki.long(), pi) and torch.equal(kd, pd)):
+                raise AssertionError(f"knn_select {(bsz, s, n, k)} {kind}: "
+                                     f"{int((ki.long() != pi).sum())} indices differ, distances "
+                                     f"{(kd - pd).abs().max().item()} apart")
+            if not (torch.equal(gi, pi) and torch.equal(gn, index_points(points, pi))):
+                raise AssertionError(f"knn_points {(bsz, s, n, k)} {kind}: gather differs")
+            ms = cuda_ms(lambda: knn_cuda.knn_select(query, points, k), reps=20)
+            plain_ms = cuda_ms(lambda: knn_plain(query, points, k), reps=3)
+            lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(query, points).square(), k,
+                                                largest=False), reps=10)
+            call = ("knn", s, n, k, False)
+            nbytes, ops = bound_parts(call, bsz)
+            if not kind:
+                rows.append({"call": ["knn_select", s, n, k], "batch": bsz, "max_abs_err": 0.0,
+                             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bytes": nbytes, "ops": ops})
+            print(f"[denoise kernel{' ' + kind if kind else ''}] knn_select (B={bsz}, S={s}, "
+                  f"N={n}, k={k}): identical to plain, distances bit-equal, gather equal, "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cdist + topk {lib_ms:.3f} ms, "
+                  f"bound {bound_ms(nbytes, ops):.4f} ms ({card})", flush=True)
+    variants = sorted({fps_cuda.variant(n) for n in FPS_N_RUN})
+    print(f"[kernel variants] FPS variants run in phases 2 and 41: {variants}", flush=True)
+    if variants != list(range(fps_cuda.num_variants())):
+        raise AssertionError(f"FPS variants run {variants}, of {fps_cuda.num_variants()}")
+    return rows
+
+
+def phase_denoise(card, device):
+    """Phase 42: ``patch_based_denoise`` with the affine stand-in on the
+    card at N = 50000 and 10000 (the defaults: patch 1000, seed_k 3), each
+    run a path run (counts reset before it, read after; FPS and the large-k
+    kNN must launch); each of its four steps timed alone; the 10000-point
+    output bit-equal to the port's CPU run. Returns the 50K run's counts."""
+    from upp_torch.ops.knn import knn_points
+    from upp_torch.utils.denoise import farthest_point_sampling, patch_based_denoise
+    stub = AffineDenoiser()
+    counts = {}
+    for n, want in ((50000, DENOISE_50K), (10000, DENOISE_10K)):
+        pcl = scan_cloud(n, n, device)
+        reset_counts()
+        with Recorder() as rec:
+            out = patch_based_denoise(stub, pcl)
+            torch.cuda.synchronize()
+        counts[n] = check_calls(f"denoise {n}", rec, want)
+        if out.shape != (n, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"denoise {n}: output {tuple(out.shape)}")
+        seeds, _ = farthest_point_sampling(pcl[None], 3 * n // 1000)
+        _, _, patches = knn_points(seeds, pcl[None], 1000)
+        den = stub.denoise_langevin_dynamics(patches[0], 0.2, 4, 0.95, 30)
+        flat = den.reshape(1, -1, 3).contiguous()
+        steps = {"seed fps": lambda: farthest_point_sampling(pcl[None], 3 * n // 1000),
+                 "patch knn": lambda: knn_points(seeds, pcl[None], 1000),
+                 "denoiser (stand-in)": lambda: stub.denoise_langevin_dynamics(
+                     patches[0], 0.2, 4, 0.95, 30),
+                 "re-sampling fps": lambda: farthest_point_sampling(flat, n)}
+        ms = {k: cuda_ms(f, reps=3, warmup=1) for k, f in steps.items()}
+        total = cuda_ms(lambda: patch_based_denoise(stub, pcl), reps=3, warmup=1)
+        extra = ""
+        if n == 10000:
+            cpu_out = patch_based_denoise(stub, pcl.cpu())
+            if not torch.equal(out.cpu(), cpu_out):
+                raise AssertionError(f"denoise {n}: card and CPU differ by "
+                                     f"{(out.cpu() - cpu_out).abs().max().item()}")
+            extra = "; equal to the CPU's bit for bit"
+        print(f"[denoise] N={n}: launches {counts[n]}; {total:.2f} ms a cloud; steps "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()) + f"{extra} ({card})",
+              flush=True)
+    return counts[50000]
+
+
+def phase_profiling(config, card):
+    """Phase 43: ``profile_train_step`` on the cls config at batch 120 with
+    the deep rows, and a ``maybe_trace`` of one annotated PEFT step whose
+    trace must hold the ``annotate`` ranges."""
+    import glob
+    from upp_torch.train.runner_cls import PEFT_LIST
+    from upp_torch.utils.profiling import annotate, maybe_trace, profile_train_step
+    t0 = time.time()
+    rows = profile_train_step(CFG, iters=5, batch_size=B, deep=True)
+    print(f"[profiling] profile_train_step({CFG}, batch {B}, --deep): "
+          + ", ".join(f"{k.strip()} {v:.2f} ms" for k, v in rows.items())
+          + f"; {time.time() - t0:.1f} s ({card})", flush=True)
+    if len(rows) != 8 or not rows["full train step"] > 0:
+        raise AssertionError(f"profile_train_step: rows {rows}")
+    _, _, step = cls_train_setup(config, torch.device("cuda"), PEFT_LIST)
+    clouds = torch.from_numpy(synthetic_clouds(B)[0]).cuda()
+    labels = torch.zeros(B, dtype=torch.long, device="cuda")
+    step(clouds, labels)
+    trace_dir = os.path.join(CLI_DIR, "trace")
+    with maybe_trace(trace_dir):
+        with annotate("cls train step"):
+            with annotate("step body"):
+                step(clouds, labels)
+            torch.cuda.synchronize()
+    files = sorted(glob.glob(os.path.join(trace_dir, "trace-*.json")))
+    names = {e.get("name") for e in json.load(open(files[-1]))["traceEvents"]} if files else set()
+    if not {"cls train step", "step body"} <= names:
+        raise AssertionError(f"maybe_trace: {files}, no annotate ranges in the trace")
+    kernels = sum(1 for n in names if n and ("fps_kernel" in n or "knn_kernel" in n))
+    print(f"[profiling] maybe_trace: {os.path.basename(files[-1])}, "
+          f"{os.path.getsize(files[-1]) / 2 ** 20:.1f} MiB, with the two annotate ranges and "
+          f"{kernels} FPS/kNN kernel names ({card})", flush=True)
+
+
+def phase_remat(config, card, device):
+    """Phase 44: the cls PEFT step at batch 120, float32 and bf16, with and
+    without ``remat_blocks``, from the same weights and draws, under
+    ``torch.use_deterministic_algorithms`` (warn only): gradients, the
+    parameters after the step and BatchNorm buffers bit-equal with and
+    without remat; ms per step and peak memory of each."""
+    from upp_torch.train.runner_cls import PEFT_LIST
+    clouds = torch.from_numpy(synthetic_clouds(B)[0]).to(device)
+    labels = torch.from_numpy(synthetic_clouds(B)[1]).to(device)
+    report = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for kind, cfg in (("f32", config), ("bf16", half_config(config))):
+            results = {}
+            for remat in (False, True):
+                c = copy.deepcopy(cfg)
+                c.model.remat_blocks = remat
+                model, _, step = cls_train_setup(c, device, PEFT_LIST)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                step(clouds, labels)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+                ms = cuda_ms(lambda: step(clouds, labels), reps=5, warmup=1)
+                results[remat] = (grads, state, peak, ms)
+                del model, step
+            (g0, s0, p0, t0), (g1, s1, p1, t1) = results[False], results[True]
+            bad = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+            bad += [k for k in s0 if not torch.equal(s0[k], s1[k])]
+            if bad or g0.keys() != g1.keys():
+                raise AssertionError(f"remat {kind}: {len(bad)} tensors differ, {bad[:5]}")
+            report.append(f"{kind}: {t0:.2f} -> {t1:.2f} ms/step, peak {p0:.2f} -> {p1:.2f} GiB")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[remat] cls PEFT step, B={B}, without -> with remat_blocks: {'; '.join(report)}; "
+          f"gradients, parameters and BatchNorm buffers bit-equal ({card})", flush=True)
+
+
+def phase_async_checkpoints(config, card, device):
+    """Phase 45: ``save_checkpoint`` of the flagship classifier after an
+    AdamW step, with ``block=True`` (the write) and ``block=False`` (the
+    time the training thread waits: the snapshot on the card), then
+    ``wait_for_pending_saves``; the two files hold equal tensors."""
+    from upp_torch.train import checkpoint as ckpt
+    from upp_torch.train.runner_cls import PEFT_LIST
+    model, optimizer, step = cls_train_setup(config, device, PEFT_LIST)
+    clouds = torch.from_numpy(synthetic_clouds(B)[0]).to(device)
+    step(clouds, torch.zeros(B, dtype=torch.long, device=device))
+    out_dir = os.path.join(CLI_DIR, "ckpt_async")
+    times = {}
+    for block in (True, False, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(model, optimizer, 1, f"ckpt-{'sync' if block else 'async'}",
+                             out_dir, logger="silent", block=block)
+        times.setdefault(block, []).append((time.perf_counter() - t0) * 1e3)
+        t1 = time.perf_counter()
+        ckpt.wait_for_pending_saves()
+        times.setdefault(f"join {block}", []).append((time.perf_counter() - t1) * 1e3)
+    a, b = (torch.load(os.path.join(out_dir, f"ckpt-{n}.pth"), map_location="cpu",
+                       weights_only=True) for n in ("sync", "async"))
+    if not all(torch.equal(v, b["base_model"][k]) for k, v in a["base_model"].items()):
+        raise AssertionError("async checkpoint: the files differ")
+    size = os.path.getsize(os.path.join(out_dir, "ckpt-sync.pth")) / 2 ** 20
+    print(f"[async checkpoints] {size:.1f} MiB checkpoint (B={B} cls model + AdamW): the "
+          f"training thread waits block=True {times[True][0]:.1f}, {times[True][1]:.1f} ms; "
+          f"block=False {times[False][0]:.1f}, {times[False][1]:.1f} ms (then "
+          f"wait_for_pending_saves {times['join False'][0]:.1f}, {times['join False'][1]:.1f} "
+          f"ms); files equal ({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2573,8 +2944,9 @@ def main() -> int:
 
     # 1. build
     t0 = time.time()
-    usage = cuda_build.build(["fps", "knn", "chamfer"])
-    print(f"[build] fps.cu + knn.cu + chamfer.cu built in {time.time() - t0:.1f} s "
+    usage = cuda_build.build(["fps", "knn", "chamfer", "knn_select"])
+    print(f"[build] fps.cu + knn.cu + chamfer.cu + knn_select.cu built in "
+          f"{time.time() - t0:.1f} s "
           f"({card})", flush=True)
     for name, lines in usage.items():
         for kernel in lines.split("; "):
@@ -2731,6 +3103,7 @@ def main() -> int:
                           stages=(("PEFT", PEFT_LIST),), tag="cls bf16 clean", **half_bounds)
     phase_cls_card_vs_cpu(clouds, labels, half_config(config), card, device,
                           stages=(("PEFT", PEFT_LIST),), tag="cls bf16", hold=False)
+    phase_half_cls_passes(clouds, config, card, device)
     phase_pretask_card_vs_cpu(clouds, half_config(pretask_config), card, device,
                               tag="pretask bf16", **half_bounds)
     phase_pretrain_card_vs_cpu(all_clouds, half_config(pre_cfg), card, device,
@@ -2747,6 +3120,15 @@ def main() -> int:
 
     # 40. AdapterSuper and the visualisation runner
     phase_tools(clouds, card, device)
+
+    # 41. the denoise kernels, 42. denoising, 43. profiling, 44. remat_blocks,
+    # 45. asynchronous checkpoints
+    with torch.inference_mode():
+        denoise_rows = phase_denoise_kernels(card)
+    denoise_counts = phase_denoise(card, device)
+    phase_profiling(config, card)
+    phase_remat(config, card, device)
+    phase_async_checkpoints(config, card, device)
 
     # the cls train step's forward makes the robust step's kernel calls
     kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"], B, "cls train step"),
@@ -2777,6 +3159,8 @@ def main() -> int:
                 for k in ("fps", "knn")]
     kernels += [kernel_entry("chamfer", rows, PRETRAIN_CHAMFER, pre_half["chamfer"],
                              B_REBUILD, "pretrain bf16")]
+    kernels += [kernel_entry(k, denoise_rows, DENOISE_50K, denoise_counts[k], 1, "denoise 50K")
+                for k in ("fps", "knn_select")]
     print("[kernels] ms/plain_ms/bound_ms summed over one step's calls of each entry's path: "
           f"fps and knn over one cls train step (B={B}, the robust step's calls), one seg "
           f"PEFT train step (B={B_SEG}), one pretrain train step (B={B_PRETRAIN}) and one "
@@ -2784,7 +3168,8 @@ def main() -> int:
           f"(B={B_PRETASK}) and one pretrain train step (its {B_REBUILD} clouds of 32); all "
           f"three over one PoinTr and one AdaPoinTr train step (B={B_COMP}), one legacy "
           f"pretask train step (B={B_PRETASK}) and the bf16 (if_half) cls, pretask and "
-          f"pretrain train steps; launches from those steps' runs; {card}")
+          f"pretrain train steps; fps and knn_select over one patch_based_denoise of 50000 "
+          f"points (B=1; library_ms: torch.cdist + topk); launches from those runs; {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Time design alternatives of the port's FPS, kNN and Chamfer kernels on a
 CUDA card.
 
-    python3 scripts/torch_kernel_variants.py [fps] [knn] [chamfer] [--parent DIR]
+    python3 scripts/torch_kernel_variants.py [fps] [knn] [chamfer] [fps-cluster] [--parent DIR]
 
 Each alternative is the committed source (``upp_torch/csrc/*.cu``) with one
 change, made here by text substitution and built with the port's own
@@ -26,7 +26,13 @@ change, made here by text substitution and built with the port's own
   chamfer shfl-min  the column's warp minimum by a ``__shfl_xor_sync``
                     butterfly (committed: ``redux.sync``);
   chamfer probes    no-column-index, no-column, no-row-index: a part of the
-                    work left out, to show its cost (outputs not checked).
+                    work left out, to show its cost (outputs not checked);
+  fps-cluster P32 W16
+                    FPS variant 6 (N > 16384, a cluster of 16 blocks a
+                    cloud) with 32 points a thread in at most 16 warps
+                    (committed: 16 in at most 32), at the patch denoiser's
+                    shapes at batch 1, timed by CUDA events in turns,
+                    indices equal. Not part of the default set.
 
 At the robust path's shapes (batch 120, the synthetic clouds of
 ``chip_smoke.py``; Chamfer at the pretask shapes, batch 64) every
@@ -212,6 +218,51 @@ def fps_variants(clouds, gen, card):
             print(f"[fps variant] {n}->{s} masked={masked}: committed "
                   f"(variant {fps_cuda.variant(n)}) {c:.1f} us, {name} {v:.1f} us "
                   f"(B={B}; {card})", flush=True)
+
+
+FPS_CLUSTER_SHAPES = ((16385, 512), (30000, 10000), (50000, 150), (150000, 50000),
+                      (262144, 1024))
+FPS_CLUSTER_P32 = (("""constexpr int kClusterP = 16; """, """constexpr int kClusterP = 32; """),
+                   ("""constexpr int kClusterWarps = 32; """,
+                    """constexpr int kClusterWarps = 16; """))
+
+
+def fps_cluster_variants(card):
+    """FPS variant 6 against its alternatives at the denoise shapes (batch
+    1, random normal clouds), CUDA events in turns; indices equal."""
+    from upp_torch.ops import fps_cuda
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = {"P32 W16": build("fps_cluster_p32", substituted("fps", *FPS_CLUSTER_P32))}
+    fns = {name: lib.upp_fps for name, lib in libs.items()}
+    for fn in fns.values():
+        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+    committed = fps_cuda._lib().upp_fps
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for n, s in FPS_CLUSTER_SHAPES:
+        xyz = torch.randn((1, n, 3), generator=gen, device="cuda")
+        want = torch.empty((1, s), dtype=torch.int32, device="cuda")
+        got = torch.empty_like(want)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(fn, out):
+            def go():
+                err = fn(xyz.data_ptr(), None, 1, n, s, out.data_ptr(), stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed ({err})")
+            return go
+        base = run(committed, want)
+        base()
+        reps = max(1, min(20, 20000 // s))
+        for name, fn in fns.items():
+            alt = run(fn, got)
+            alt()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fps-cluster {name} at {n}->{s}: indices differ")
+            c, v = in_turns(base, alt, lambda f: events_ms(f, reps))
+            print(f"[fps-cluster variant] {n}->{s}: committed {c:.3f} ms, {name} {v:.3f} ms, "
+                  f"{c / (s - 1) * 1e3:.2f} / {v / (s - 1) * 1e3:.2f} us a round (B=1; {card})",
+                  flush=True)
 
 
 def knn_variants(clouds, card, parent_dir=None):
@@ -441,7 +492,7 @@ def chamfer_steps(clouds, card, parent_dir, steps=5):
 
 
 def events_ms(fn, reps=20):
-    for _ in range(3):
+    for _ in range(min(reps, 3)):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -474,6 +525,11 @@ def main() -> int:
         parent_dir = args[i + 1]
         del args[i:i + 2]
     kernels = set(args) or {"fps", "knn", "chamfer"}
+    if kernels == {"fps-cluster"}:
+        print(f"[card] {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+              flush=True)
+        fps_cluster_variants(card_line())
+        return 0
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     clouds = torch.from_numpy(synthetic_clouds(B)[0]).cuda()

@@ -247,6 +247,7 @@ def test_resume_of_a_checkpoint_without_a_step_count(pair, tmp_path):
     opt = optim.build_optimizer(config, tm, steps_per_epoch=5)
     opt.num_steps = 7
     ckpt.save_checkpoint(tm, opt, 2, "ckpt-last", str(tmp_path))
+    ckpt.wait_for_pending_saves()          # the write is asynchronous
     saved = torch.load(tmp_path / "ckpt-last.pth", map_location="cpu", weights_only=True)
     assert saved["optimizer"]["num_steps"] == 7
     for with_count, want in ((True, 7), (False, 15)):

@@ -162,8 +162,9 @@ def _one_process_ckpt(tmp):
     for p in model.parameters():
         p.grad = torch.ones_like(p)
     opt.step()
+    # written before the rank processes read it
     return checkpoint.save_checkpoint(model, opt, 4, "ckpt-last", str(tmp / "one"),
-                                      logger="silent")
+                                      logger="silent", block=True)
 
 
 def _jobs(tmp, pretrain_jax):

@@ -208,6 +208,7 @@ def case_ckpt(job):
     opt = optim.build_optimizer(ConfigDict.from_nested(job["config"]), model, 1)
     path = checkpoint.save_checkpoint(model, opt, 3, "ckpt-x",
                                       os.path.join(job["dir"], f"rank{rank}"))
+    checkpoint.wait_for_pending_saves()     # the write is asynchronous
     written = os.path.exists(path)
     load_weights(model, job["one_process_ckpt"], logger="silent")
     loaded = _state(model)

@@ -45,15 +45,41 @@
 // Variants (points per thread P, warps W = ceil(N / (32 P)) <= 16):
 //   N <= 32: P = 1; <= 64: 2; <= 2048: 4; <= 4096: 8; <= 8192: 32 (these with
 //   x, y, z in registers); <= 16384: 32 with x, y, z in shared memory.
+//
+// Variant 6, 16384 < N <= 2^18 (the patch denoiser's re-sampling of about
+// 3N points, utils/denoise.py): one cloud does not fit one SM's shared
+// memory, and a block per cloud would leave 131 of the 132 SMs idle at the
+// denoiser's batch of 1. So a cloud is spread over a thread-block cluster
+// of 16 blocks (16 SMs of one GPC; a non-portable cluster size), block r
+// holding the points [r * NP, (r + 1) * NP) in shared memory and their
+// running distances in registers (16 a thread, W <= 32 warps). A round
+// reduces as the single-block kernel does within the block (warp keys,
+// one barrier, warp 0 takes the block's key), and warp 0 publishes the
+// block's key with the winner's x, y, z in a slot double-buffered by round
+// parity; after one cluster barrier every warp reads the 16 slots through
+// distributed shared memory and takes their maximum, which yields the next
+// centre and its coordinates without a trip to device memory. The global
+// index in the key's low word keeps the argmax exact across blocks: ties
+// go to the lowest index, as in the plain version. The other design, a
+// cooperative launch over every SM with a grid-wide barrier a round, would
+// pay two round trips through L2 a round where the cluster barrier and the
+// distributed shared memory stay within the GPC.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <mutex>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxN = 16384;  // 12 bytes a point in shared memory: 192 KB
+constexpr int kMaxBlockN = 16384;  // 12 bytes a point in shared memory: 192 KB
+constexpr int kClusterBlocks = 16;  // blocks of one cloud in variant 6
+constexpr int kClusterP = 16;       // points a thread in variant 6
+constexpr int kClusterWarps = 32;   // warps a block at most in variant 6
+constexpr int kMaxN = 262144;       // kClusterBlocks * kClusterWarps * 32 * kClusterP
 constexpr int kMaxWarps = 16;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
@@ -195,35 +221,214 @@ struct Variant {
 const Variant kVariants[] = {
     {fps_kernel<1, true>, 1, 32},     {fps_kernel<2, true>, 2, 64},
     {fps_kernel<4, true>, 4, 2048},   {fps_kernel<8, true>, 8, 4096},
-    {fps_kernel<32, true>, 32, 8192}, {fps_kernel<32, false>, 32, kMaxN},
+    {fps_kernel<32, true>, 32, 8192}, {fps_kernel<32, false>, 32, kMaxBlockN},
 };
-constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
+constexpr int kNumBlockVariants = sizeof(kVariants) / sizeof(kVariants[0]);
+constexpr int kClusterVariant = kNumBlockVariants;  // variant 6
+constexpr int kNumVariants = kNumBlockVariants + 1;
 
 int variant_of(int N) {
-  for (int v = 0; v < kNumVariants; ++v)
+  for (int v = 0; v < kNumBlockVariants; ++v)
     if (N <= kVariants[v].max_n) return v;
-  return -1;
+  return N <= kMaxN ? kClusterVariant : -1;
+}
+
+// A block's candidate of one round in variant 6: its largest key and the
+// coordinates of that point, read by the cluster's other blocks.
+struct alignas(16) BlockBest {
+  unsigned long long key;
+  float x, y, z;
+};
+
+__device__ __forceinline__ unsigned long long pack_key(unsigned hi, unsigned lo) {
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// Variant 6: the cloud blockIdx.x / kClusterBlocks over the cluster's 16
+// blocks (see the head of this file). Block r's slot j is the point
+// r * NP + j, NP = blockDim.x * kClusterP; thread t holds slots t + p * T,
+// in index order with p.
+__global__ void __launch_bounds__(kClusterWarps * 32)
+fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ init, int N,
+                   int S, int* __restrict__ idx_out) {
+  extern __shared__ float smem[];
+  __shared__ unsigned long long slot[2][kClusterWarps];
+  __shared__ int first[2][kClusterWarps];
+  __shared__ int block_first[2];        // read by the other blocks
+  __shared__ BlockBest block_best[2];   // read by the other blocks, by round parity
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / kClusterBlocks;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = T >> 5;
+  const int NP = T * kClusterP;
+  const int base = rank * NP;               // global index of this block's slot 0
+  const int n_here = max(0, min(NP, N - base));
+  float* sx = smem;
+  float* sy = sx + NP;
+  float* sz = sy + NP;
+  const float* pts = xyz + (size_t)b * N * 3;
+  const float* in = init == nullptr ? nullptr : init + (size_t)b * N;
+
+  for (int t = tid; t < 3 * n_here; t += T) {
+    const int j = t / 3;
+    smem[(t - 3 * j) * NP + j] = pts[3 * base + t];
+  }
+  for (int j = n_here + tid; j < NP; j += T) sx[j] = sy[j] = sz[j] = 0.f;
+
+  float dist[kClusterP];
+  int first_explicit = N, first_valid = N;
+#pragma unroll
+  for (int p = kClusterP - 1; p >= 0; --p) {  // downwards: the last hit is the lowest slot
+    const int j = tid + p * T;
+    float v = -CUDART_INF_F;
+    if (j < n_here) {
+      v = in == nullptr ? kBig : in[base + j];
+      if (v > 1.5f * kBig) first_explicit = base + j;
+      if (v > 0.f) first_valid = base + j;
+    }
+    dist[p] = v;
+  }
+  first_explicit = __reduce_min_sync(kFull, first_explicit);
+  first_valid = __reduce_min_sync(kFull, first_valid);
+  if (lane == 0) {
+    first[0][warp] = first_explicit;
+    first[1][warp] = first_valid;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    first_explicit = __reduce_min_sync(kFull, lane < nwarps ? first[0][lane] : N);
+    first_valid = __reduce_min_sync(kFull, lane < nwarps ? first[1][lane] : N);
+    if (lane == 0) {
+      block_first[0] = first_explicit;
+      block_first[1] = first_valid;
+    }
+  }
+  cluster.sync();  // the staged points and every block's first slots
+  first_explicit = N;
+  first_valid = N;
+  if (lane < kClusterBlocks) {
+    const int* remote = cluster.map_shared_rank(block_first, lane);
+    first_explicit = remote[0];
+    first_valid = remote[1];
+  }
+  first_explicit = __reduce_min_sync(kFull, first_explicit);
+  first_valid = __reduce_min_sync(kFull, first_valid);
+  int cur = first_explicit < N ? first_explicit : (first_valid < N ? first_valid : 0);
+  float cx = pts[3 * cur], cy = pts[3 * cur + 1], cz = pts[3 * cur + 2];
+
+  int* out = idx_out + (size_t)b * S;
+  for (int i = 0;; ++i) {
+    if (rank == 0 && tid == 0) out[i] = cur;
+    if (i + 1 == S) break;  // the last round's argmax is not needed
+    float bv = -CUDART_INF_F;
+    int bp = 0;
+#pragma unroll
+    for (int p = 0; p < kClusterP; ++p) {
+      const int j = tid + p * T;
+      const float dx = __fsub_rn(sx[j], cx);
+      const float dy = __fsub_rn(sy[j], cy);
+      const float dz = __fsub_rn(sz[j], cz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const float nd = fminf(dist[p], d);
+      dist[p] = nd;
+      if (nd > bv) {  // strict: the thread's slots come in index order
+        bv = nd;
+        bp = p;
+      }
+    }
+    unsigned hi = ordered_bits(bv);
+    unsigned lo = ~static_cast<unsigned>(base + tid + bp * T);
+    warp_max_key(hi, lo);
+    if (lane == 0) slot[i & 1][warp] = pack_key(hi, lo);
+    __syncthreads();
+    if (warp == 0) {
+      const unsigned long long k = lane < nwarps ? slot[i & 1][lane] : 0ull;
+      hi = static_cast<unsigned>(k >> 32);
+      lo = static_cast<unsigned>(k);
+      warp_max_key(hi, lo);
+      if (lane == 0) {
+        const int j = static_cast<int>(~lo) - base;
+        block_best[i & 1] = BlockBest{pack_key(hi, lo), sx[j], sy[j], sz[j]};
+      }
+    }
+    // round i + 2 rewrites this parity's slot only after round i + 1's
+    // barrier, which no block passes before every block has read it here
+    cluster.sync();
+    BlockBest c{0ull, 0.f, 0.f, 0.f};
+    if (lane < kClusterBlocks) c = *cluster.map_shared_rank(&block_best[i & 1], lane);
+    hi = static_cast<unsigned>(c.key >> 32);
+    lo = static_cast<unsigned>(c.key);
+    warp_max_key(hi, lo);
+    const int win = __ffs(__ballot_sync(kFull, c.key == pack_key(hi, lo))) - 1;
+    cx = __shfl_sync(kFull, c.x, win);
+    cy = __shfl_sync(kFull, c.y, win);
+    cz = __shfl_sync(kFull, c.z, win);
+    cur = static_cast<int>(~lo);
+  }
+  cluster.sync();  // no block leaves while another may still read its slots
 }
 
 // Each kernel's dynamic shared memory limit is raised on each device once
 // per kernel, device and size, the first time a launch needs more than is
 // set, not on every call (beyond 48 KB, static included, a launch fails
 // without it).
+// Variant 6 also needs its non-portable cluster size allowed, once per
+// device.
 std::mutex g_smem_mutex;
 int g_smem_limit[kNumVariants][kMaxDevices];
+bool g_cluster_allowed[kMaxDevices];
 
 cudaError_t reserve_smem(int v, size_t bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  const void* kernel = v == kClusterVariant
+                           ? reinterpret_cast<const void*>(fps_cluster_kernel)
+                           : reinterpret_cast<const void*>(kVariants[v].kernel);
   std::lock_guard<std::mutex> lock(g_smem_mutex);
+  if (v == kClusterVariant && !g_cluster_allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    g_cluster_allowed[dev] = true;
+  }
   if (g_smem_limit[v][dev] >= static_cast<int>(bytes)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kVariants[v].kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err == cudaSuccess) g_smem_limit[v][dev] = static_cast<int>(bytes);
   return err;
+}
+
+// Variant 6: a cluster of kClusterBlocks blocks per cloud, each block
+// ceil(N / (kClusterBlocks * 32 * kClusterP)) warps (at most kClusterWarps).
+int launch_cluster(const float* xyz, const float* init, int B, int N, int S, int* idx_out,
+                   cudaStream_t stream) {
+  const int per_warp = kClusterBlocks * 32 * kClusterP;
+  const int warps = (N + per_warp - 1) / per_warp;
+  const size_t smem = sizeof(float) * 3 * static_cast<size_t>(warps * 32 * kClusterP);
+  cudaError_t err = reserve_smem(kClusterVariant, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kClusterBlocks * B);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, init, N, S, idx_out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -250,6 +455,8 @@ int upp_fps(const float* xyz, const float* init, int B, int N, int S,
   if (B <= 0 || S <= 0) return 0;
   const int v = N > 0 ? variant_of(N) : -1;
   if (v < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (v == kClusterVariant)
+    return launch_cluster(xyz, init, B, N, S, idx_out, static_cast<cudaStream_t>(stream));
   const int P = kVariants[v].points_per_thread;
   const int warps = (N + 32 * P - 1) / (32 * P);
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(warps * 32 * P);

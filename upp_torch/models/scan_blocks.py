@@ -28,15 +28,22 @@ a pass is given, else from torch's RNG. ``compute_dtype`` bf16 (the
 config's ``if_half``) makes every block's attention and MLP products bf16
 with float32 accumulation (``layers.half_matmul``); the adapters, the
 propagation, the residuals and every LayerNorm stay float32, as in
-``upp_tpu/models/scan_blocks.py:336-376``.
+``upp_tpu/models/scan_blocks.py:336-376``. ``remat`` (the config's
+``remat_blocks``) recomputes each block in the backward instead of saving
+its activations (``upp_tpu/models/scan_blocks.py:120-126, 262``), with the
+same draws, BatchNorm statistics updated once and the same collectives on
+every rank (``remat_block``): the gradients are bit-equal, only memory
+changes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.geometry import index_points
 from ..ops.propagate import inverse_distance_interp
@@ -164,25 +171,77 @@ def block_drop_path(rate: float, i: int, depth: int) -> float:
     return rate * i / max(depth - 1, 1)
 
 
+def remat_block(block: nn.Module, x, pos, generator: Optional[torch.Generator] = None,
+                **kw):
+    """``block(x, pos, generator=generator, **kw)`` under
+    ``torch.utils.checkpoint`` (non-reentrant): only the inputs are saved,
+    and the backward runs the block again. The recomputation must redo the
+    forward exactly:
+
+    * its draws: ``preserve_rng_state`` restores torch's global RNG but not
+      an explicit generator, so the block's generator and the train step's
+      (``shard.model_generator()``, adapter dropout and the propagation's
+      drop-path) are set back to their state before the forward while it
+      runs, then forward again;
+    * the train step's ``shard.global_batch`` context, which a backward on
+      another thread (the card's autograd thread) does not see, is entered
+      again, so the recomputation draws, normalises and gathers over the
+      same global batch; every rank recomputes the same blocks in the same
+      order of the backward, so their collectives pair up;
+    * BatchNorm running statistics (``bnorm``) are put back after it, so
+      they move once a step."""
+    sh, step_gen = shard.current(), shard.model_generator()
+    gens = list({id(g): g for g in (generator, step_gen) if g is not None}.values())
+    before = [g.get_state() for g in gens]
+    bns = [m for m in block.modules()
+           if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats]
+
+    @contextlib.contextmanager
+    def recompute():
+        after = [g.get_state() for g in gens]
+        stats = [[t.clone() for t in (m.running_mean, m.running_var, m.num_batches_tracked)]
+                 for m in bns]
+        for g, state in zip(gens, before):
+            g.set_state(state)
+        try:
+            with shard.global_batch(sh, step_gen):
+                yield
+        finally:
+            for g, state in zip(gens, after):
+                g.set_state(state)
+            with torch.no_grad():
+                for m, saved in zip(bns, stats):
+                    for t, v in zip((m.running_mean, m.running_var, m.num_batches_tracked),
+                                    saved):
+                        t.copy_(v)
+
+    return checkpoint(lambda x, pos: block(x, pos, generator=generator, **kw), x, pos,
+                      use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
+
+
 def run_blocks(blocks: nn.ModuleList, x, pos, *, path: str, run_depth: int,
                prompt_depth: int, adapter_len: int,
                classification: bool = False, propagation: Optional[dict] = None,
                feature_blocks: Sequence[int] = (),
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, remat: bool = False):
     """Run blocks[0:run_depth] as the JAX package's segments: [0,
     prompt_depth) prompted, [prompt_depth, run_depth) not. A segment uses the
     path's adapters only when they cover all of it (``adapter_len >= hi``).
-    Returns x, or (x, taps) with ``feature_blocks``: the output of each
-    block whose index is in it, in order."""
+    With ``remat`` and gradients on, each block goes through
+    ``remat_block``. Returns x, or (x, taps) with ``feature_blocks``: the
+    output of each block whose index is in it, in order."""
     segments = ([(0, prompt_depth, True), (prompt_depth, run_depth, False)]
                 if prompt_depth else [(0, run_depth, False)])
+    run = remat_block if remat and torch.is_grad_enabled() else (
+        lambda block, x, pos, generator=None, **kw: block(x, pos, generator=generator, **kw))
     taps = []
     for lo, hi, prompted in segments:
         use_adapter = adapter_len >= hi
         for i in range(lo, hi):
-            x = blocks[i](x, pos, path=path, prompted=prompted, use_adapter=use_adapter,
-                          classification=classification, propagation=propagation,
-                          generator=generator)
+            x = run(blocks[i], x, pos, generator, path=path, prompted=prompted,
+                    use_adapter=use_adapter, classification=classification,
+                    propagation=propagation)
             if i in feature_blocks:
                 taps.append(x)
     return (x, taps) if feature_blocks else x
@@ -196,9 +255,10 @@ class ScannedEncoderStack(nn.Module):
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, prompter: PrompterConfig = PrompterConfig(),
                  drop_path_rate: float = 0.0, plain: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         p = PrompterConfig() if plain else prompter
+        self.remat = remat
         self.depth = depth
         self.run_depth = {"rectify": p.rectify_depth or depth,
                           "pretask": p.pretask_depth or depth,
@@ -231,7 +291,8 @@ class ScannedEncoderStack(nn.Module):
                           prompt_depth=min(self.prompt_len.get(path, 0), run_depth),
                           adapter_len=self.adapter_len.get(path, 0),
                           classification=classification, propagation=propagation,
-                          feature_blocks=feature_blocks, generator=generator)
+                          feature_blocks=feature_blocks, generator=generator,
+                          remat=self.remat)
 
 
 class ScannedDecoderStack(nn.Module):
@@ -242,8 +303,10 @@ class ScannedDecoderStack(nn.Module):
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, drop_path_rate: float = 0.0,
-                 plain: bool = False, compute_dtype: torch.dtype = torch.float32):
+                 plain: bool = False, compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList(
             PromptedBlock(embed_dim, num_heads, mlp_ratio,
                           adapters=() if plain else ("pretask",),
@@ -256,5 +319,6 @@ class ScannedDecoderStack(nn.Module):
     def forward(self, x, pos, return_token_num: int,
                 generator: Optional[torch.Generator] = None):
         x = run_blocks(self.blocks, x, pos, path="pretask", run_depth=len(self.blocks),
-                       prompt_depth=0, adapter_len=self.adapter_len, generator=generator)
+                       prompt_depth=0, adapter_len=self.adapter_len, generator=generator,
+                       remat=self.remat)
         return self.norm(x[:, -return_token_num:])

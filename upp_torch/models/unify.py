@@ -58,7 +58,9 @@ class _UnifyCore(nn.Module):
         """``num_group``: the group count of the rectify and completion
         geometry, the config's unless given (the segmentation model keeps
         64 while its downstream pass groups ``cfg.num_group``); ``if_half``:
-        bf16 products in the block stacks."""
+        bf16 products in the block stacks. The config's ``remat_blocks``
+        recomputes both stacks' blocks in the backward
+        (``upp_tpu/models/unify.py:180, 255``)."""
         super().__init__()
         tc = cfg.transformer_config
         trans_dim, group_size = tc.trans_dim, cfg.group_size
@@ -73,10 +75,11 @@ class _UnifyCore(nn.Module):
         n_mask = geometry - self.vis_num
         self.encoder = Encoder(tc.encoder_dims)
         self.pos_embed = PosEmbedMLP(trans_dim)
+        remat = bool(cfg.get("remat_blocks", False))
         self.blocks = ScannedEncoderStack(
             trans_dim, tc.depth, tc.num_heads,
             prompter=PrompterConfig.from_cfg(cfg.get("prompter_config")),
-            drop_path_rate=drop_path_rate, compute_dtype=compute_dtype(if_half))
+            drop_path_rate=drop_path_rate, compute_dtype=compute_dtype(if_half), remat=remat)
         self.norm = layer_norm(trans_dim)
         self.shape_pred = TwoLayerHead(trans_dim, trans_dim // 2, self.vis_short)
         self.coarse_pred = TwoLayerHead(self.vis_short * self.vis_num, trans_dim,
@@ -86,7 +89,8 @@ class _UnifyCore(nn.Module):
         self.MAE_decoder = ScannedDecoderStack(trans_dim, tc.decoder_depth,
                                                tc.decoder_num_heads,
                                                drop_path_rate=drop_path_rate,
-                                               compute_dtype=compute_dtype(if_half))
+                                               compute_dtype=compute_dtype(if_half),
+                                               remat=remat)
         self.dense_pred = nn.Sequential(PointConv(trans_dim, 3 * group_size))
         self.rectify_prompter = RectifyPrompter(hidden_dimension=trans_dim)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, trans_dim))
@@ -103,12 +107,32 @@ class _UnifyCore(nn.Module):
     def denoise_pts(self, pts: torch.Tensor, point_num: int) -> torch.Tensor:
         """Nudge points along the rectification vector and drop the noisiest
         points, keeping 95% of ``point_num`` (``Point_MAE_unify.py:554-559``)."""
-        pred_vector = self.rectify_vectors(pts)
+        return self.drop_noisiest(pts, self.rectify_vectors(pts), point_num)[0]
+
+    @staticmethod
+    def drop_noisiest(pts: torch.Tensor, pred_vector: torch.Tensor, point_num: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the rectified cloud of ``denoise_pts``, the descending score
+        order [B, P] it keeps the last 95% of ``point_num`` of)."""
         score = torch.linalg.norm(pred_vector, dim=-1)            # [B, P]
         order = torch.argsort(-score, dim=1, stable=True)          # descending
         pts = pts + 0.2 * pred_vector
         keep_idx = order[:, -int(point_num * 0.95):]
-        return torch.gather(pts, 1, keep_idx[..., None].expand(-1, -1, 3))
+        return torch.gather(pts, 1, keep_idx[..., None].expand(-1, -1, 3)), order
+
+    def complete_and_resample(self, pts: torch.Tensor, point_num: int):
+        """The completion pass and its re-sampling
+        (``upp_tpu/models/unify.py:197-202``): FPS of ``point_num // 4``
+        rebuilt points joined to the cloud, then FPS back to ``point_num``
+        if it is larger. Returns (cloud, (predict_center, rebuild), (the two
+        FPS picks; the second None when not needed))."""
+        center, rebuild = self.complete(pts)
+        sample_rebuild, pick_rebuild = fps(rebuild, point_num // 4)
+        pts = torch.cat([pts, sample_rebuild], dim=1)
+        pick_all = None
+        if pts.shape[1] > point_num:
+            pts, pick_all = fps(pts, point_num)
+        return pts, (center, rebuild), (pick_rebuild, pick_all)
 
     def complete(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Completion pass (``Point_MAE_unify.py:572-610``): prompted blocks
@@ -171,11 +195,7 @@ class PointMAEUnify(_UnifyCore):
         if denoise:
             pts = self.denoise_pts(pts, point_num)
         if completion_prompt:
-            _, rebuild = self.complete(pts)
-            sample_rebuild, _ = fps(rebuild, point_num // 4)
-            pts = torch.cat([pts, sample_rebuild], dim=1)
-            if pts.shape[1] > point_num:
-                pts, _ = fps(pts, point_num)
+            pts = self.complete_and_resample(pts, point_num)[0]
 
         g = group_points(pts, self.num_group, self.group_size)
         tokens = self.encoder(g.neighborhood)

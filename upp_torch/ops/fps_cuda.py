@@ -4,12 +4,16 @@
 plain PyTorch version instead. The library is built at first use (see
 ``cuda_build``), never at import.
 
-The kernel runs one block per cloud and comes in six variants by the
-cloud's size N, each thread keeping P points in ceil(N / (32 P)) warps:
-0: N <= 32, P = 1; 1: N <= 64, P = 2; 2: N <= 2048, P = 4; 3: N <= 4096,
-P = 8; 4: N <= 8192, P = 32 (these with x, y, z and the running distance in
-registers); 5: N <= 16384, P = 32 (the distances in registers, x, y, z in
-shared memory). ``variant`` asks the library which one serves N.
+The kernel comes in seven variants by the cloud's size N. Variants 0-5 run
+one block per cloud, each thread keeping P points in ceil(N / (32 P))
+warps: 0: N <= 32, P = 1; 1: N <= 64, P = 2; 2: N <= 2048, P = 4; 3: N <=
+4096, P = 8; 4: N <= 8192, P = 32 (these with x, y, z and the running
+distance in registers); 5: N <= 16384, P = 32 (the distances in registers,
+x, y, z in shared memory). Variant 6, 16384 < N <= 2^18, spreads a cloud
+over a cluster of 16 blocks on 16 SMs, each block holding a sixteenth of
+the points as variant 5 holds a cloud and the round's argmax crossing the
+blocks through distributed shared memory. ``variant`` asks the library
+which one serves N.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 from . import cuda_build
 
 _BIG = 1e10          # running-distance start of a valid slot (pointnet2's)
-MAX_N = 16384        # csrc/fps.cu kMaxN: the cloud is staged in shared memory
+MAX_N = 262144       # csrc/fps.cu kMaxN: a sixteenth of the cloud in each block's
+                     # shared memory (variant 6)
 
 
 @functools.cache
@@ -59,18 +64,18 @@ def fps_idx(xyz: torch.Tensor, n_samples: int,
     are encoded into the kernel's initial distance table as the Pallas kernel
     takes them (1e10 valid, -1 invalid, 2e10 explicit start); without either
     the kernel gets no table (every slot valid, start at 0)."""
-    if xyz.device.type != "cuda":
-        raise ValueError(f"fps_idx: xyz must be a CUDA tensor, got {xyz.device}")
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"fps_idx: xyz must be float32 [B, N, 3], got "
                          f"{xyz.dtype} {tuple(xyz.shape)}")
-    if not xyz.is_contiguous():
-        raise ValueError("fps_idx: xyz must be contiguous")
     B, N, _ = xyz.shape
     if not 0 < N <= MAX_N:
         raise ValueError(f"fps_idx: N={N} outside the kernel's range 1..{MAX_N}")
     if n_samples < 1:
         raise ValueError(f"fps_idx: n_samples={n_samples} must be >= 1")
+    if xyz.device.type != "cuda":
+        raise ValueError(f"fps_idx: xyz must be a CUDA tensor, got {xyz.device}")
+    if not xyz.is_contiguous():
+        raise ValueError("fps_idx: xyz must be contiguous")
     dev = xyz.device
     init = None
     if valid is not None:

@@ -1,13 +1,17 @@
 """k-nearest-neighbour search (counterpart of ``upp_tpu/ops/knn.py``).
 
-On CUDA tensors ``knn``/``knn_points`` run the hand-written kernel
-(``knn_cuda`` / ``csrc/knn.cu``) at every call site, whatever the size,
-inside ``KnnKernel``, an autograd Function whose backward is the JAX
-package's custom VJP (``knn_pallas.py:186-204, 229-237``) in plain tensor
-code, as it is there. On CPU tensors they run ``knn_plain``, the plain
-PyTorch version the kernel is held against, and autograd differentiates it.
-Both use the difference form of the squared distance, as the Pallas kernel
-does, and break ties toward the lowest index.
+On CUDA tensors ``knn``/``knn_points`` run a hand-written kernel at every
+call site, whatever the size, inside ``KnnKernel``, an autograd Function
+whose backward is the JAX package's custom VJP (``knn_pallas.py:186-204,
+229-237``) in plain tensor code, as it is there: ``knn_cuda.knn``
+(``csrc/knn.cu``) up to k = 64 and N = 16384, past either limit the
+large-k ``knn_cuda.knn_select`` (``csrc/knn_select.cu``, the patch
+denoiser's k = 1000), whose neighbours' xyz ``index_points`` gathers, as
+the JAX package gathers outside any kernel there (``knn.py:58-67``). On CPU
+tensors they run ``knn_plain``, the plain PyTorch version both kernels are
+held against, and autograd differentiates it. All use the difference form
+of the squared distance, as the Pallas kernel does, and break ties toward
+the lowest index.
 """
 
 from __future__ import annotations
@@ -62,15 +66,22 @@ def knn_backward(query: torch.Tensor, points: torch.Tensor, idx: torch.Tensor,
 
 
 class KnnKernel(torch.autograd.Function):
-    """The kNN kernel with a backward: forward (query [B,S,3], points
-    [B,N,3], k, gather) -> (d, idx int64[, nbr]) from ``knn_cuda.knn``."""
+    """The kNN kernels with a backward: forward (query [B,S,3], points
+    [B,N,3], k, gather) -> (d, idx int64[, nbr]) from ``knn_cuda.knn``, or
+    past its limits from ``knn_cuda.knn_select`` and ``index_points``."""
 
     @staticmethod
     def forward(ctx, query, points, k: int, gather: bool):
         from . import knn_cuda
-        d, idx, nbr = knn_cuda.knn(query.detach().float().contiguous(),
-                                   points.detach().float().contiguous(), k, gather)
-        idx = idx.long()
+        q = query.detach().float().contiguous()
+        p = points.detach().float().contiguous()
+        if k <= knn_cuda.MAX_K and p.shape[1] <= knn_cuda.MAX_N:
+            d, idx, nbr = knn_cuda.knn(q, p, k, gather)
+            idx = idx.long()
+        else:
+            d, idx = knn_cuda.knn_select(q, p, k)
+            idx = idx.long()
+            nbr = index_points(p, idx) if gather else None
         ctx.mark_non_differentiable(idx)
         ctx.save_for_backward(query, points, idx, nbr)
         if gather:

@@ -1,15 +1,17 @@
-"""Binding of the CUDA kNN kernel (``csrc/knn.cu``).
+"""Bindings of the CUDA kNN kernels (``csrc/knn.cu``, ``csrc/knn_select.cu``).
 
-``knn`` takes CUDA tensors only and carries no gradient: it refuses an input
-that requires one, so gradients go through ``ops.knn``'s autograd Function,
-which calls it. ``ops.knn`` sends CPU tensors to the plain PyTorch version
-instead. The library is built at first use (see ``cuda_build``), never at
-import.
+``knn`` and ``knn_select`` take CUDA tensors only and carry no gradient:
+they refuse an input that requires one, so gradients go through
+``ops.knn``'s autograd Function, which calls them. ``ops.knn`` sends CPU
+tensors to the plain PyTorch version instead. The libraries are built at
+first use (see ``cuda_build``), never at import.
 
-The kernel runs a warp per query, 8 queries per block, over its cloud staged
-in shared memory, keeping one (distance, index) key a lane for k <= 32 and
-two for 32 < k <= 64 (two template instances of one kernel); the library
-picks by k.
+``knn``'s kernel runs a warp per query, 8 queries per block, over its cloud
+staged in shared memory, keeping one (distance, index) key a lane for k <= 32
+and two for 32 < k <= 64 (two template instances of one kernel); the library
+picks by k. ``knn_select``'s kernel serves the rest up to k = 1024 and
+N = 2^20 at few queries: a block per query radix-selects the k-th distance
+and sorts the k taken keys.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from . import cuda_build
 
 MAX_K = 64       # csrc/knn.cu kMaxK: two kept keys per lane of the query's warp
 MAX_N = 16384    # csrc/knn.cu kMaxN: the cloud is staged in shared memory
+SELECT_MAX_K = 1024      # csrc/knn_select.cu kMaxK: the taken keys sorted in shared memory
+SELECT_MAX_N = 1048576   # csrc/knn_select.cu kMaxN
+SELECT_SMEM_MAX_N = 53248  # csrc/knn_select.cu kSmemMaxN: beyond, distances in scratch
 
 
 @functools.cache
@@ -38,31 +43,54 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _select_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("knn_select")
+    lib.upp_knn_select.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.upp_knn_select.restype = ctypes.c_int
+    lib.upp_knn_select_error_string.argtypes = [ctypes.c_int]
+    lib.upp_knn_select_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(fn: str, query: torch.Tensor, points: torch.Tensor, k: int,
+                  max_k: int, max_n: int) -> None:
+    """Raise unless ``query`` [B,S,3] and ``points`` [B,N,3] are float32
+    contiguous CUDA tensors without gradient, one device and batch, and
+    0 < k <= min(max_k, N), 0 < N <= max_n. The shapes and limits are
+    checked first, the device after. Reads no device memory."""
+    for name, t in (("query", query), ("points", points)):
+        if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{fn}: {name} must be float32 [B, *, 3], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    N = points.shape[1]
+    if not 0 < N <= max_n:
+        raise ValueError(f"{fn}: N={N} outside the kernel's range 1..{max_n}")
+    if not 0 < k <= min(max_k, N):
+        raise ValueError(f"{fn}: k={k} outside the kernel's range 1..min({max_k}, N={N})")
+    for name, t in (("query", query), ("points", points)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if query.device != points.device or query.shape[0] != points.shape[0]:
+        raise ValueError(f"{fn}: query and points must share device and batch")
+    if torch.is_grad_enabled() and (query.requires_grad or points.requires_grad):
+        raise RuntimeError(f"{fn}: the kernel carries no gradient; call "
+                           "ops.knn.knn / knn_points, whose autograd Function "
+                           "has the backward")
+
+
 def knn(query: torch.Tensor, points: torch.Tensor, k: int, gather: bool
         ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(sq_dists [B,S,k] f32 ascending, idx [B,S,k] i32, nbr [B,S,k,3] f32 or
     None) by the kernel, for float32 contiguous CUDA ``query`` [B,S,3] and
     ``points`` [B,N,3]. ``gather`` writes the neighbours' xyz."""
-    for name, t in (("query", query), ("points", points)):
-        if t.device.type != "cuda":
-            raise ValueError(f"knn: {name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
-            raise ValueError(f"knn: {name} must be float32 [B, *, 3], got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"knn: {name} must be contiguous")
-    if query.device != points.device or query.shape[0] != points.shape[0]:
-        raise ValueError("knn: query and points must share device and batch")
-    if torch.is_grad_enabled() and (query.requires_grad or points.requires_grad):
-        raise RuntimeError("knn: the kernel carries no gradient; call "
-                           "ops.knn.knn / knn_points, whose autograd Function "
-                           "has the backward")
+    _check_inputs("knn", query, points, k, MAX_K, MAX_N)
     B, S, _ = query.shape
     N = points.shape[1]
-    if not 0 < N <= MAX_N:
-        raise ValueError(f"knn: N={N} outside the kernel's range 1..{MAX_N}")
-    if not 0 < k <= min(MAX_K, N):
-        raise ValueError(f"knn: k={k} outside the kernel's range 1..min({MAX_K}, N={N})")
     dev = query.device
     d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=dev)
@@ -79,3 +107,31 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, gather: bool
 
 
 knn.launches = 0
+
+
+def knn_select(query: torch.Tensor, points: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sq_dists [B,S,k] f32 ascending, idx [B,S,k] i32) by the large-k
+    kernel, for float32 contiguous CUDA ``query`` [B,S,3] and ``points``
+    [B,N,3], k <= 1024, N <= 2^20. One block a query: meant for few
+    queries (``knn`` serves the many-query call sites up to k = 64)."""
+    _check_inputs("knn_select", query, points, k, SELECT_MAX_K, SELECT_MAX_N)
+    B, S, _ = query.shape
+    N = points.shape[1]
+    dev = query.device
+    d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((B * S, N), dtype=torch.int32, device=dev)
+               if N > SELECT_SMEM_MAX_N else None)
+    err = cuda_build.launch(_select_lib().upp_knn_select, dev, query.data_ptr(),
+                            points.data_ptr(), B, S, N, k,
+                            None if scratch is None else scratch.data_ptr(), d.data_ptr(),
+                            idx.data_ptr())
+    if err != 0:
+        msg = _select_lib().upp_knn_select_error_string(err).decode()
+        raise RuntimeError(f"knn_select kernel launch failed: {msg} ({err})")
+    knn_select.launches += 1
+    return d, idx
+
+
+knn_select.launches = 0

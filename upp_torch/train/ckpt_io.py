@@ -54,8 +54,11 @@ def load_torch_state_dict(path: str, keep: Container[str] = ()
 
 
 def load_weights(model: nn.Module, path: str, logger=None) -> Tuple[List[str], List[str]]:
-    """Load the ``.pth`` at ``path`` into ``model``; logs and returns
-    (missing, unexpected) keys (the first 20 of each are logged)."""
+    """Load the ``.pth`` at ``path`` into ``model``, after every pending
+    checkpoint write has landed; logs and returns (missing, unexpected) keys
+    (the first 20 of each are logged)."""
+    from .checkpoint import wait_for_pending_saves
+    wait_for_pending_saves()
     own = model.state_dict()
     fit, unexpected = {}, []
     for k, v in load_torch_state_dict(path, keep=own).items():

@@ -309,6 +309,7 @@ def run_net(args, config, train_writer=None, val_writer=None) -> CDMetric:
                                      metrics=metrics.state_dict(), logger=logger)
         ckpt.save_checkpoint(model, optimizer, epoch, "ckpt-last", args.experiment_path,
                              metrics=metrics.state_dict(), logger=logger)
+    ckpt.wait_for_pending_saves()
     return best
 
 

@@ -180,4 +180,5 @@ def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
         if epoch % 25 == 0 and epoch >= 250:
             ckpt.save_checkpoint(model, optimizer, epoch, f"ckpt-epoch-{epoch:03d}",
                                  args.experiment_path, logger=logger)
+    ckpt.wait_for_pending_saves()
     return best

@@ -227,6 +227,7 @@ def run_net(args, config, train_writer=None, val_writer=None, unify: bool = True
                                      logger=logger)
         ckpt.save_checkpoint(model, optimizer, epoch, "ckpt-last", args.experiment_path,
                              metrics=_floats(metrics), logger=logger)
+    ckpt.wait_for_pending_saves()
     return metrics
 
 
