@@ -245,7 +245,38 @@ Phases, each fatal on failure:
      buffers bit-equal; ms per step and peak memory;
  45. ``save_checkpoint`` of the flagship classifier with ``block=True`` and
      ``block=False`` (the training thread's wait), then
-     ``wait_for_pending_saves``; the files equal.
+     ``wait_for_pending_saves``; the files equal;
+ 46. fsdp two ranks, one card: ``Point_MAE`` at the width of
+     ``cfgs/pretrain.yaml`` (12 + 4 blocks of 384), global batch 128 (64 a
+     rank), two gloo processes sharing the card, replicated and ZeRO-3
+     (``upp_torch.parallel.fsdp``) from the same weights: two sharded steps
+     held to the replicated ones at ``DIST_TOL`` (loss, gradients gathered
+     whole, updated parameters within 2.004 lr a step, running
+     statistics), the ranks bit-equal; ms per step, each rank's parameter
+     and AdamW moment bytes and peak memory, sharded against replicated;
+     then a blocking checkpoint of the sharded run (gathered on every
+     rank), a resume into a fresh sharded model whose next step's loss
+     equals the continuing run's (rtol 1e-4), and the ``.pth`` loaded with
+     ``strict=True`` into a one-process model and optimizer whose own state
+     dicts equal it tensor for tensor;
+ 47. tp two ranks, one card: the cls steps of phase 26 at the full width of
+     ``cfgs/unify_synthetic_cls.yaml`` and batch 120 under dp1 x tp2
+     (``upp_torch.parallel.tensor``; each rank on all 120 clouds, 3 of the 6
+     heads and half of each MLP), gradients and parameters gathered whole,
+     held to phase 26's one-process steps at its bounds (``cls clean``
+     tensor by tensor, ``cls peft`` and ``cls joint`` by loss and gradient
+     norm), the ranks bit-equal;
+ 48. ``upp_torch.dryrun.dryrun_multichip(2)`` on the card (gloo ranks
+     sharing it: its three ``OK`` lines, each loss within 1e-3 of the data
+     parallel one) and ``upp_torch.dryrun.entry()``: the full-width noisy
+     forward at batch 8, finite logits (8, 40), ms;
+ 49. two node groups: phase 13's CLI command with ``--deterministic`` under
+     ``torch.distributed.run --nnodes 2 --node_rank {0,1} --nproc_per_node
+     1`` (rank 1's local rank is 0) and under ``--standalone
+     --nproc_per_node 2``, both over gloo on the card, side by side: their
+     ``ckpt-last.pth`` equal bit for bit. With four cards or more, ZeRO-3
+     over four NCCL ranks (as phase 46) and dp2 x tp2 over NCCL (as phase
+     47) run too; else a line says why not.
 Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
 clouds and on tie-heavy grid clouds of 2048 points; FPS, kNN and Chamfer at
 the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32 points) and
@@ -269,13 +300,18 @@ and pretrain train steps; each entry names its ``path``) and the card's
 name and power limit; the ``kernels`` line also has fps and knn_select
 entries for one ``patch_based_denoise`` of 50000 points (phase 42's
 launches, phase 41's times; knn_select's ``library_ms`` is
-``torch.cdist`` + ``topk``); the last line is the ``{"ok": true,
+``torch.cdist`` + ``topk``); fps, knn and chamfer entries for rank 0 of
+phase 46's ZeRO-3 pretrain step (64 clouds a rank; its Chamfer over 2432
+clouds of 32) and fps and knn for rank 0 of phase 47's dp1 x tp2 cls PEFT
+step (120 clouds), launches counted in those rank processes; the last line
+is the ``{"ok": true,
 "device": ...}`` JSON object.
 """
 
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import re
@@ -597,9 +633,12 @@ def seg_shapes():
 
 def baseline_shapes():
     """(call, batch) of every kernel shape of the pretrain (batch 128; its
-    Chamfer over 4864 clouds) and fine-tune cls (batch 40) paths."""
+    Chamfer over 4864 clouds; and a rank's half of both, phase 46) and
+    fine-tune cls (batch 40) paths."""
     return ([(c, B_PRETRAIN) for c in sorted(PRETRAIN_CALLS)]
             + [(c, B_REBUILD) for c in PRETRAIN_CHAMFER]
+            + [(c, B_PRETRAIN // N_RANKS) for c in sorted(PRETRAIN_CALLS)]
+            + [(c, B_REBUILD // N_RANKS) for c in PRETRAIN_CHAMFER]
             + [(c, B_FT) for c in sorted(set(FT_CALLS) | set(FT_EVAL_CALLS))])
 
 
@@ -748,8 +787,9 @@ def phase_kernels(clouds, seg_clouds, comp_clouds, card):
     # the wide kNN calls read the 16384-point clouds, the fold's Chamfer
     # 32768 points: each cloud, then itself at half the scale
     wide = torch.cat([comp_clouds[:B_WIDE], 0.5 * comp_clouds[:B_WIDE]], 1)
-    sources = {B_SEG: seg_clouds, B_REBUILD: rebuild_clouds(clouds), B_COMP: comp_clouds,
-               B_WIDE: wide}
+    rebuild = rebuild_clouds(clouds)
+    sources = {B_SEG: seg_clouds, B_REBUILD: rebuild, B_REBUILD // N_RANKS: rebuild,
+               B_COMP: comp_clouds, B_WIDE: wide}
     rows = []
     for call, bsz in kernel_shapes():
         src = sources.get(bsz, clouds)
@@ -1930,7 +1970,20 @@ def phase_dist_world1(card, peft_ms):
           flush=True)
 
 
-def dist_steps(device, timed=False):
+def _whole(model, full):
+    """(gradients, parameters with a gradient, running statistics) of
+    ``model`` on the CPU, each split tensor gathered whole by ``full(name,
+    tensor)`` (a collective: every rank calls it)."""
+    grads, params = {}, {}
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            grads[n] = full(n, p.grad).to("cpu", copy=True)
+            params[n] = full(n, p.detach()).to("cpu", copy=True)
+    return grads, params, {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+                           if "running_" in k}
+
+
+def dist_steps(device, timed=False, tp=False):
     """This process's share of phases 26-27's steps, each from the seeded
     weights on this rank's rows of the global batches: the cls PEFT step at
     batch 120 without the noisy passes (``cls clean``), with them (``cls
@@ -1941,12 +1994,18 @@ def dist_steps(device, timed=False):
     after the step (on the CPU), the learning rate; with ``timed`` also ms
     per step (mean of 5 after a warm-up). The cls steps run without the
     gradient clip, as phase 12's: a clipped norm would hide the gradients'
-    own."""
-    from upp_torch.parallel.dist import COUNTS, get_dist_info
+    own. With ``tp`` (phase 47) the cls steps alone, under a grid of
+    ``world // 2`` data ranks x 2 model ranks (``upp_torch.parallel.tensor``),
+    the split tensors gathered whole, and the kernels' launches of the
+    ``cls peft`` step."""
+    from upp_torch.parallel import tensor
+    from upp_torch.parallel.dist import COUNTS, clear_grid, data_info, make_grid, model_group
     from upp_torch.train.optim import set_trainable
     from upp_torch.train.runner_cls import JOINT_PEFT_LIST, PEFT_LIST
     from upp_torch.utils.config import cfg_from_yaml_file
-    rank, world = get_dist_info()
+    if tp:
+        make_grid(2)
+    rank, world = data_info()
     clouds_np, labels_np = synthetic_clouds(B_PRETRAIN)
 
     def mine(a, n):
@@ -1957,17 +2016,17 @@ def dist_steps(device, timed=False):
 
     def run(name, step, model, lr, *batch):
         COUNTS.clear()
+        reset_counts()
         m = step(*batch)
         torch.cuda.synchronize()
+        launches = read_counts()
+        full = (lambda n, t: tensor.full_tensor(model, n, t)) if tp else (lambda n, t: t)
+        grads, params, running = _whole(model, full)
         out[name] = {"loss": float(m["loss"]), "counts": dict(COUNTS), "lr": lr,
-                     "grads": {n: p.grad.to("cpu", copy=True)
-                               for n, p in model.named_parameters() if p.grad is not None},
-                     "params": {n: p.detach().to("cpu", copy=True)
-                                for n, p in model.named_parameters() if p.grad is not None},
-                     "running": {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
-                                 if "running_" in k}}
+                     "grads": grads, "params": params, "running": running,
+                     "launches": launches}
         if timed:
-            out[name]["ms"] = cuda_ms(lambda: step(*batch), reps=5, warmup=1)
+            out[name]["ms"] = cuda_ms(lambda: step(*batch), reps=3 if tp else 5, warmup=1)
 
     pts, lab = mine(clouds_np, B), mine(labels_np, B)
     for name, noisy, switch in (("cls clean", False, False), ("cls peft", True, False),
@@ -1976,10 +2035,17 @@ def dist_steps(device, timed=False):
         config.noisy_train = noisy
         config.grad_norm_clip = None    # the gradients compared are the step's own
         model, _, step = cls_train_setup(config, device, PEFT_LIST)
+        if tp:
+            tensor.shard_model(model, model_group())
         if switch:
             set_trainable(model, JOINT_PEFT_LIST)
         run(name, step, model, float(config.optimizer.kwargs.lr), pts, lab)
         del model, step
+    if tp:
+        out["passes"] = tp_passes(device, mine(clouds_np, B))
+        clear_grid()
+        torch.cuda.empty_cache()
+        return out
     pre_cfg = cfg_from_yaml_file(PRETRAIN_CFG)
     model, step = pretrain_setup(pre_cfg, device)
     run("pretrain", step, model, float(pre_cfg.optimizer.kwargs.lr), mine(clouds_np, B_PRETRAIN))
@@ -1993,7 +2059,9 @@ def dist_worker(argv) -> int:
     ``time OUT`` under torchrun (a world of one) times the cls PEFT train
     step at batch 120; ``ranks BACKEND OUT_DIR`` is one rank of phase 26 or
     27 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_*`` set by the
-    parent) and saves ``dist_steps`` to ``OUT_DIR/rank<r>.pt``."""
+    parent) and saves ``dist_steps`` to ``OUT_DIR/rank<r>.pt``; ``tp
+    BACKEND OUT_DIR`` the same for phase 47 (``dist_steps(tp=True)``),
+    ``fsdp BACKEND OUT_DIR`` for phase 46 (``fsdp_steps``)."""
     from upp_torch import resolve_device
     from upp_torch.parallel.dist import COUNTS, get_dist_info, init_dist
     if argv[0] == "time":
@@ -2011,8 +2079,11 @@ def dist_worker(argv) -> int:
     else:
         backend, out_dir = argv[1], argv[2]
         device = resolve_device(init_dist("pytorch", "cuda", backend=backend))
-        torch.save(dist_steps(device, timed=True),
-                   os.path.join(out_dir, f"rank{get_dist_info()[0]}.pt"))
+        out = os.path.join(out_dir, f"rank{get_dist_info()[0]}.pt")
+        if argv[0] == "fsdp":
+            torch.save(fsdp_steps(device, out_dir), out)
+        else:
+            torch.save(dist_steps(device, timed=True, tp=argv[0] == "tp"), out)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -2021,11 +2092,13 @@ def _grad_norm(grads):
     return sum(float((g.double() ** 2).sum()) for g in grads.values()) ** 0.5
 
 
-def _hold_dist(tag, name, ref, ranks):
+def _hold_dist(tag, name, ref, ranks, steps=1, hold_noisy=True):
     """One step of ``N_RANKS`` ranks against one process at ``DIST_TOL``
     (``DIST_CONTINUOUS`` tensor by tensor, ``DIST_NOISY`` by loss and
-    gradient norm), and the ranks against each other bit for bit. Returns a
-    summary."""
+    gradient norm; without ``hold_noisy`` those two are printed, not
+    held), and the ranks against each other bit for bit; the parameters
+    after ``steps`` steps from the same weights are held within 2.004 lr a
+    step. Returns a summary."""
     got = ranks[0][name]
     want = ref[name]
     for other in ranks[1:]:
@@ -2045,17 +2118,21 @@ def _hold_dist(tag, name, ref, ranks):
     tail = (f"collectives a step: {c.get('forward', 0)} forward ({c.get('forward_bytes', 0)} "
             f"B), {c.get('backward', 0)} backward ({c.get('backward_bytes', 0)} B), "
             f"{c.get('gradients', 0)} gradient all-reduce ({c.get('gradients_bytes', 0)} B), "
-            f"{c.get('host', 0)} for the logged metrics; {got['ms']:.2f} ms/step")
+            + "".join(f"{c[k]} {k} ({c[k + '_bytes']} B), " for k in ("fsdp", "tp") if k in c)
+            + f"{c.get('host', 0)} for the logged metrics; {got['ms']:.2f} ms/step")
     if name in DIST_NOISY:
-        if not np.isclose(got["loss"], want["loss"], rtol=DIST_TOL["noisy_loss_rtol"],
-                          atol=DIST_TOL["noisy_loss_atol"]):
+        if hold_noisy and not np.isclose(got["loss"], want["loss"],
+                                         rtol=DIST_TOL["noisy_loss_rtol"],
+                                         atol=DIST_TOL["noisy_loss_atol"]):
             raise AssertionError(f"{tag} {name}: loss {got['loss']} vs one process {want['loss']}")
-        if not np.isclose(norm, norm_ref, rtol=DIST_TOL["noisy_norm_rtol"], atol=0.0):
+        if hold_noisy and not np.isclose(norm, norm_ref, rtol=DIST_TOL["noisy_norm_rtol"],
+                                         atol=0.0):
             raise AssertionError(f"{tag} {name}: gradient norm {norm} vs one process {norm_ref}")
+        held = "" if hold_noisy else ", printed, not held: the passes are held one by one"
         return (f"{name}: loss {got['loss']:.6f} vs one process {want['loss']:.6f} (rtol 1e-3, "
-                f"atol 2e-3); trainable gradient norm {norm:.6g} vs {norm_ref:.6g} (rtol 1e-2), "
-                f"the gradients {whole:.3g} apart (whole relative norm: other points picked "
-                f"at the near ties); {tail}")
+                f"atol 2e-3{held}); trainable gradient norm {norm:.6g} vs {norm_ref:.6g} (rtol "
+                f"1e-2), the gradients {whole:.3g} apart (whole relative norm: other points "
+                f"picked at the near ties); {tail}")
     if not np.isclose(got["loss"], want["loss"], rtol=DIST_TOL["loss"], atol=0.0):
         raise AssertionError(f"{tag} {name}: loss {got['loss']} vs one process {want['loss']}")
     top = max(float(g.abs().max()) for g in want["grads"].values())
@@ -2078,9 +2155,9 @@ def _hold_dist(tag, name, ref, ranks):
         p_max = max(p_max, float(d.max()))
         flips += int((d > 0.1 * lr).sum())
         total += d.numel()
-    if p_max > 2.004 * lr:
+    if p_max > 2.004 * lr * steps:
         raise AssertionError(f"{tag} {name}: a parameter {p_max:.3g} from one process "
-                             f"(bound {2.004 * lr:.3g})")
+                             f"(bound {2.004 * lr * steps:.3g})")
     r_max = 0.0
     for k, v in want["running"].items():
         if not torch.allclose(got["running"][k], v, rtol=DIST_TOL["running_rtol"],
@@ -2090,8 +2167,28 @@ def _hold_dist(tag, name, ref, ranks):
     return (f"{name}: loss {got['loss']:.6f} vs one process {want['loss']:.6f}; gradients "
             f"worst tensor {worst:.3g} ({worst_k}; relative norm; whole {whole:.3g}), vanishing ones "
             f"{noise:.3g} of the largest; parameters within {p_max:.3g} (bound "
-            f"{2.004 * lr:.3g}), {flips} of {total} elements more than lr/10 apart; running "
+            f"{2.004 * lr * steps:.3g}), {flips} of {total} elements more than lr/10 apart; running "
             f"statistics within {r_max:.3g}; {tail}")
+
+
+def _rank_children(kind, backend, local_ranks, timeout=600):
+    """Run ``chip_smoke.py --dist-worker KIND BACKEND DIR`` as
+    ``len(local_ranks)`` ranks (rank r on card ``local_ranks[r]``); their
+    saved results by rank, and the wall time."""
+    world = len(local_ranks)
+    out_dir = os.path.join(DIST_DIR, f"{kind}_{backend}{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    port = _free_port()
+    t0 = time.time()
+    _run_children([(f"{kind}_rank{r}_{backend}{world}",
+                    [sys.executable, os.path.abspath(__file__), "--dist-worker", kind,
+                     backend, out_dir],
+                    _child_env(RANK=str(r), WORLD_SIZE=str(world),
+                               LOCAL_RANK=str(local_ranks[r]), MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=port))
+                   for r in range(world)], timeout=timeout)
+    return ([torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)], time.time() - t0)
 
 
 def dist_ranks(tag, backend, local_ranks, ref, card):
@@ -2135,6 +2232,270 @@ def phase_dist_ranks(card, device):
     else:
         print(f"[dist nccl two cards] not run: {torch.cuda.device_count()} card(s) here, "
               f"NCCL needs a card for each of the {N_RANKS} ranks ({card})", flush=True)
+    return ref
+
+
+# ---------------------------------------------------------------------------
+# phases 46-49: ZeRO-3 (upp_torch.parallel.fsdp), tensor parallelism
+# (upp_torch.parallel.tensor), the dry run (upp_torch.dryrun) and two node groups
+
+TP_NAMES = ("cls clean", "cls peft", "cls joint")
+
+
+def fsdp_steps(device, out_dir):
+    """One rank of phase 46 (or of the four-card run): the pretrain step at
+    batch 128 on this rank's rows, from the seeded weights, replicated and
+    then ZeRO-3 (``fsdp.shard_model``): each of two steps' loss, collectives,
+    gradients and updated parameters gathered whole, running statistics;
+    the kernels' launches of the first step; ms per step (3 after a
+    warm-up), persistent parameter and moment bytes and peak memory. Then,
+    sharded: a blocking checkpoint, a resume into a fresh sharded model and
+    the next step of both; on rank 0 the ``.pth`` against a one-process
+    model and optimizer loaded from it."""
+    from upp_torch.parallel import fsdp
+    from upp_torch.parallel.dist import COUNTS, get_dist_info
+    from upp_torch.train import checkpoint
+    from upp_torch.train.optim import build_optimizer
+    from upp_torch.train.runner_cls import init_model
+    from upp_torch.train.runner_pretrain import make_pretrain_step
+    from upp_torch.utils.config import cfg_from_yaml_file
+    rank, world = get_dist_info()
+    cfg = cfg_from_yaml_file(PRETRAIN_CFG)
+    lr = float(cfg.optimizer.kwargs.lr)
+    b = B_PRETRAIN // world
+    pts = torch.from_numpy(synthetic_clouds(B_PRETRAIN)[0][rank * b:(rank + 1) * b]).to(device)
+    args = types.SimpleNamespace(seed=SEED)
+
+    def setup(shard):
+        model = init_model(args, cfg, device)
+        opt = build_optimizer(cfg, model, steps_per_epoch=1)
+        if shard:
+            fsdp.shard_model(model)
+        return model, opt, make_pretrain_step(model, opt, cfg, args)
+
+    out = {}
+    for mode in ("replicated", "fsdp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, step = setup(mode == "fsdp")
+        res = out[mode] = {"steps": []}
+        for i in range(2):
+            COUNTS.clear()
+            reset_counts()
+            loss = float(step(pts)["loss"])
+            torch.cuda.synchronize()
+            if i == 0:
+                res["launches"] = read_counts()
+            grads, params, running = _whole(model, lambda n, t: fsdp.full_tensor(model, n, t))
+            res["steps"].append({"loss": loss, "counts": dict(COUNTS), "lr": lr, "grads": grads,
+                                 "params": params, "running": running})
+        res["ms"] = cuda_ms(lambda: step(pts), reps=3, warmup=1)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["param_bytes"], res["moment_bytes"] = fsdp.persistent_bytes(model, opt)
+        if mode == "fsdp":
+            ckpt_dir = os.path.join(out_dir, "ckpt")
+            checkpoint.save_checkpoint(model, opt, 0, "ckpt-last", ckpt_dir, block=True)
+            resumed, r_opt, r_step = setup(True)
+            res["start_epoch"], _ = checkpoint.resume_checkpoint(
+                resumed, r_opt, ckpt_dir, logger="silent", steps_per_epoch=opt.num_steps)
+            res["next_loss"] = float(step(pts)["loss"])
+            res["resumed_loss"] = float(r_step(pts)["loss"])
+            del resumed, r_opt, r_step
+            if rank == 0:
+                saved = torch.load(os.path.join(ckpt_dir, "ckpt-last.pth"), map_location="cpu",
+                                   weights_only=True)
+                plain = init_model(args, cfg, device)
+                plain.load_state_dict(saved["base_model"], strict=True)
+                p_opt = build_optimizer(cfg, plain, steps_per_epoch=1)
+                p_opt.load_state_dict(saved["optimizer"])
+                mine = [(f"base_model.{k}", v, saved["base_model"][k])
+                        for k, v in plain.state_dict().items()]
+                state = p_opt.state_dict()
+                mine += [(f"optimizer.{i}.{k}", v, saved["optimizer"]["state"][i][k])
+                         for i, st in state["state"].items() for k, v in st.items()]
+                res["layout"] = {
+                    "tensors": len(mine),
+                    "differ": [n for n, a, b_ in mine if not torch.equal(a.cpu(), b_.cpu())],
+                    "keys_equal": (plain.state_dict().keys() == saved["base_model"].keys()
+                                   and state["state"].keys() == saved["optimizer"]["state"].keys())}
+                del plain, p_opt
+        del model, opt, step
+    return out
+
+
+def tp_passes(device, pts):
+    """This rank's part of phase 47's pass-by-pass check: the noisy cls
+    step's three passes (``cls_passes``) of a dp1 x tp2 model against the
+    one-process model, both from the seeded weights in train mode with
+    dropout and drop-path off, on the card, on ``pts`` corrupted with a
+    seeded generator; for each output (largest difference, largest
+    element, within phase 12's bounds), and the discrete choices that
+    differ."""
+    from upp_torch.parallel import tensor
+    from upp_torch.parallel.dist import model_group
+    from upp_torch.train.pipeline import corrupt_batch
+    from upp_torch.train.runner_cls import PEFT_LIST
+    from upp_torch.utils.config import cfg_from_yaml_file
+    config = cfg_from_yaml_file(CFG)
+    got = no_dropout(cls_train_setup(config, device, PEFT_LIST)[0]).train()
+    tensor.shard_model(got, model_group())
+    want = no_dropout(cls_train_setup(config, device, PEFT_LIST)[0]).train()
+    points = corrupt_batch(pts, npoints=NPOINTS, n_points_dataset=N_POINTS, noisy_train=True,
+                           incomplete_cropping=True,
+                           augmentation=config.get("data_augmentation"),
+                           generator=torch.Generator(device).manual_seed(SEED + 5))
+    outs, counts = cls_passes({"got": (got, device), "want": (want, device)}, points)
+    rtol, atol = DIST_TOL["noisy_loss_rtol"], DIST_TOL["noisy_loss_atol"]
+    return {"outs": {n: ((g - w).abs().max().item(), w.abs().max().item(),
+                         bool(torch.allclose(g, w, rtol=rtol, atol=atol)))
+                     for n, (g, w) in outs.items()}, "counts": counts}
+
+
+def phase_fsdp(card, backend="gloo", local_ranks=(0,) * N_RANKS,
+               tag="fsdp two ranks, one card"):
+    """Phase 46 (and the four-card ZeRO-3 run): ``fsdp_steps`` on
+    ``len(local_ranks)`` ranks; the sharded steps held to the replicated
+    ones. Returns rank 0's launches of the sharded step."""
+    ranks, wall_s = _rank_children("fsdp", backend, list(local_ranks))
+    world = len(local_ranks)
+    rep0 = ranks[0]["replicated"]
+    for i in range(2):
+        name = f"pretrain step {i + 1}"
+        ref = {name: {**rep0["steps"][i], "ms": rep0["ms"]}}
+        got = [{name: {**r["fsdp"]["steps"][i], "ms": r["fsdp"]["ms"]}} for r in ranks]
+        print(f"[{tag}] sharded vs replicated, {_hold_dist(tag, name, ref, got, steps=i + 1)}",
+              flush=True)
+    for r, res in enumerate(ranks):
+        f, p = res["fsdp"], res["replicated"]
+        if f["param_bytes"] > 0.6 * p["param_bytes"] or f["moment_bytes"] > 0.6 * p["moment_bytes"]:
+            raise AssertionError(f"{tag}: rank {r} holds {f['param_bytes']} parameter and "
+                                 f"{f['moment_bytes']} moment bytes, replicated "
+                                 f"{p['param_bytes']} and {p['moment_bytes']}")
+        print(f"[{tag}] rank {r}: parameters {f['param_bytes'] / 1e6:.2f} MB and AdamW moments "
+              f"{f['moment_bytes'] / 1e6:.2f} MB between steps (replicated "
+              f"{p['param_bytes'] / 1e6:.2f} and {p['moment_bytes'] / 1e6:.2f} MB); peak "
+              f"{f['peak_gib']:.2f} GiB (replicated {p['peak_gib']:.2f}); {f['ms']:.2f} ms/step "
+              f"(replicated {p['ms']:.2f}); kernel launches of a sharded step {f['launches']}",
+              flush=True)
+    f0 = ranks[0]["fsdp"]
+    lay = f0["layout"]
+    if f0["start_epoch"] != 1 or not np.isclose(f0["resumed_loss"], f0["next_loss"],
+                                                rtol=DIST_TOL["loss"], atol=0.0):
+        raise AssertionError(f"{tag}: resume at epoch {f0['start_epoch']}, next loss "
+                             f"{f0['resumed_loss']} vs the continuing run's {f0['next_loss']}")
+    if lay["differ"] or not lay["keys_equal"]:
+        raise AssertionError(f"{tag}: the sharded .pth differs from a one-process save of its "
+                             f"state in {lay['differ'][:5]} (keys equal: {lay['keys_equal']})")
+    print(f"[{tag}] checkpoint: gathered on every rank, written by rank 0; loaded strictly into "
+          f"a one-process model and optimizer whose state dicts equal it in all "
+          f"{lay['tensors']} tensors; resumed into ZeRO-3 at epoch {f0['start_epoch']}, next "
+          f"step loss {f0['resumed_loss']:.6f} vs the continuing run's {f0['next_loss']:.6f}; "
+          f"{world} ranks over {backend}, batch {B_PRETRAIN} at {B_PRETRAIN // world} a rank, "
+          f"{wall_s:.1f} s of wall time for the ranks ({card})", flush=True)
+    return f0["launches"]
+
+
+def phase_tp(card, ref, backend="gloo", local_ranks=(0,) * N_RANKS,
+             tag="tp two ranks, one card"):
+    """Phase 47 (and the four-card dp2 x tp2 run): ``dist_steps(tp=True)``
+    on ``len(local_ranks)`` ranks held to the one-process steps ``ref``
+    (phase 26's) at its bounds. Returns rank 0's launches of the cls PEFT
+    step."""
+    ranks, wall_s = _rank_children("tp", backend, list(local_ranks))
+    world = len(local_ranks)
+    for name in TP_NAMES:
+        print(f"[{tag}] {_hold_dist(tag, name, ref, ranks, hold_noisy=False)}", flush=True)
+    passes = ranks[0]["passes"]
+    bad = [(r, n) for r, res in enumerate(ranks)
+           for n, (_, _, ok) in res["passes"]["outs"].items() if not ok]
+    if bad:
+        raise AssertionError(f"{tag}: passes with their input handed across differ from one "
+                             f"process in (rank, output) {bad}: "
+                             f"{[res['passes']['outs'] for res in ranks]}")
+    print(f"[{tag}] the noisy step's passes on rank 0's rows (each rank holds its own), "
+          f"each on the one-process model's input, dropout and drop-path off: "
+          + ", ".join(f"{n} {d:.3g} (largest {t:.3g})" for n, (d, t, _) in passes["outs"].items())
+          + f" apart, within rtol {DIST_TOL['noisy_loss_rtol']} / atol "
+          f"{DIST_TOL['noisy_loss_atol']}; differing from one process: "
+          f"{_choices(passes['counts'])}", flush=True)
+    print(f"[{tag}] dp{world // 2} x tp2 over {backend}: batch {B} at {B // (world // 2)} a "
+          f"data rank, 3 of the 6 heads and half of each MLP a model rank; ms/step above are "
+          f"rank 0's; {wall_s:.1f} s of wall time for the ranks ({card})", flush=True)
+    return ranks[0]["cls peft"]["launches"]
+
+
+def phase_dryrun(card):
+    """Phase 48: the port's dry run and entry on the card."""
+    from upp_torch import dryrun
+    t0 = time.time()
+    losses = dryrun.dryrun_multichip(N_RANKS)
+    dry_s = time.time() - t0
+    fn, args = dryrun.entry()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    if logits.shape != (8, 40) or not torch.isfinite(logits).all():
+        raise AssertionError(f"dryrun entry: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    ms = cuda_ms(lambda: fn(*args), reps=3, warmup=1)
+    del fn, args
+    print(f"[dryrun] dryrun_multichip({N_RANKS}): losses {losses}, {dry_s:.1f} s of wall time; "
+          f"entry(): full-width noisy forward at batch 8, logits (8, 40) finite, {ms:.2f} ms "
+          f"({card})", flush=True)
+
+
+def _last_ckpt(exp):
+    import glob
+    path = sorted(glob.glob(f"experiments/cls_cli_train/plain-network/peft-{exp}/*/"
+                            "ckpt-last.pth"))[-1]
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def phase_two_node_groups(card):
+    """Phase 49: phase 13's CLI command with ``--deterministic`` under two
+    node groups and under one node of two ranks, gloo on the card; their
+    ``ckpt-last.pth`` must be equal bit for bit."""
+    cfg = os.path.join(CLI_DIR, "cls_cli_train.yaml")
+    argv = ["-m", "upp_torch.main", "--launcher", "pytorch", "--dist_backend", "gloo",
+            "--peft_model", "--config", cfg, "--joint_optimization", "1", "--deterministic"]
+    run = [sys.executable, "-m", "torch.distributed.run"]
+    port = _free_port()
+    t0 = time.time()
+    _run_children([(f"node{r}", run + ["--nnodes", "2", "--node_rank", str(r),
+                                        "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+                                        "--master_port", port] + argv
+                    + ["--exp_name", "chip_smoke_nodes"], _child_env()) for r in (0, 1)]
+                  + [("one_node", run + ["--standalone", "--nproc_per_node", "2"] + argv
+                      + ["--exp_name", "chip_smoke_one_node"], _child_env())], timeout=420)
+    wall_s = time.time() - t0
+    nodes, one = _last_ckpt("chip_smoke_nodes"), _last_ckpt("chip_smoke_one_node")
+    tensors = [(f"base_model.{k}", v, one["base_model"][k]) for k, v in nodes["base_model"].items()]
+    tensors += [(f"optimizer.{i}.{k}", v, one["optimizer"]["state"][i][k])
+                for i, st in nodes["optimizer"]["state"].items() for k, v in st.items()]
+    differ = [n for n, a, b in tensors if not torch.equal(a, b)]
+    if (differ or nodes["epoch"] != 2 or one["epoch"] != 2
+            or nodes["base_model"].keys() != one["base_model"].keys()
+            or nodes["optimizer"]["state"].keys() != one["optimizer"]["state"].keys()):
+        raise AssertionError(f"two node groups: ckpt-last differs from one node's in "
+                             f"{len(differ)} tensors {differ[:5]}, epochs {nodes['epoch']} / "
+                             f"{one['epoch']}")
+    print(f"[two node groups] phase 13's CLI with --deterministic under --nnodes 2 "
+          f"--nproc_per_node 1 (rank 1 at local rank 0) and under --standalone "
+          f"--nproc_per_node 2, gloo on the card: ckpt-last equal bit for bit ({len(tensors)} "
+          f"tensors, model and AdamW moments, epoch {nodes['epoch']}); both runs "
+          f"{wall_s:.1f} s of wall time side by side ({card})", flush=True)
+
+
+def phase_four_cards(card, ref):
+    """ZeRO-3 over four NCCL ranks and dp2 x tp2 over NCCL, a card a rank,
+    when there are four cards."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"[four cards] not run: {n} card(s) here; ZeRO-3 over four NCCL ranks and "
+              f"dp2 x tp2 need a card a rank ({card})", flush=True)
+        return
+    phase_fsdp(card, "nccl", (0, 1, 2, 3), "fsdp nccl four cards")
+    phase_tp(card, ref, "nccl", (0, 1, 2, 3), "dp2 x tp2 nccl four cards")
 
 
 # ---------------------------------------------------------------------------
@@ -2518,66 +2879,78 @@ def phase_half_cls_logits(clouds, config, card, device):
           f"{diff / top:.3g} of the largest (bound 2e-2) ({card})", flush=True)
 
 
+def cls_passes(models, pts):
+    """The noisy cls step's three passes of ``PointMAEUnify`` one by one,
+    ``models["got"]`` against ``models["want"]`` (each a (model, device)),
+    no gradient: rectify on ``pts``, completion on ``want``'s rectified
+    cloud, downstream on ``want``'s re-sampled cloud, so that no pass
+    inherits the previous pass's reordering. Returns ({output: (got, want)
+    on the CPU}: the rectification vectors, the completion's centres and
+    rebuild, the logits; {discrete choice: (differing, of)}: the rectify
+    score sort's ranks, the points its top-5% drop drops on one side only,
+    the completion's FPS picks of the rebuild and of the joined cloud)."""
+    outs, counts = {}, {}
+    with torch.no_grad():
+        vec = {k: m.rectify_vectors(pts.to(d)) for k, (m, d) in models.items()}
+        outs["rectify vectors"] = (vec["got"].cpu(), vec["want"].cpu())
+        rect = {k: m.drop_noisiest(pts.to(d), vec[k], NPOINTS) for k, (m, d) in models.items()}
+        order = {k: rect[k][1].cpu() for k in models}
+        counts["rectify ranks"] = (int((order["got"] != order["want"]).sum()),
+                                   order["want"].numel())
+        keep = int(NPOINTS * 0.95)
+        counts["rectify drop"] = (sum(len(set(a[:-keep].tolist()) - set(b[:-keep].tolist()))
+                                      for a, b in zip(order["got"], order["want"])),
+                                  (order["want"].shape[1] - keep) * order["want"].shape[0])
+        cloud = rect["want"][0]
+        comp = {k: m.complete_and_resample(cloud.to(d), NPOINTS)
+                for k, (m, d) in models.items()}
+        for name, got, want in zip(("completion centres", "rebuild"), comp["got"][1],
+                                   comp["want"][1]):
+            outs[name] = (got.cpu(), want.cpu())
+        for name, got, want in zip(("fps picks of the rebuild", "fps picks of the cloud"),
+                                   comp["got"][2], comp["want"][2]):
+            if want is not None:
+                counts[name] = (int((got.cpu() != want.cpu()).sum()), want.numel())
+        cloud = comp["want"][0]
+        logits = {k: m(cloud.to(d)) for k, (m, d) in models.items()}
+        outs["downstream logits"] = (logits["got"].cpu(), logits["want"].cpu())
+    return outs, counts
+
+
+def _choices(counts):
+    return ", ".join(f"{n} of {of} {name}" for name, (n, of) in counts.items())
+
+
 def phase_half_cls_passes(clouds, config, card, device):
     """Phase 36b: the noisy bf16 cls PEFT step's three passes of
-    ``PointMAEUnify`` one by one, on the card and on the CPU, both bf16 in
-    train mode (dropout and drop-path off) from the same weights, at batch
-    8: rectify on the CPU-corrupted clouds (phase 12's draws), completion
-    on the CPU's rectified cloud, downstream on the CPU's re-sampled cloud,
-    so that no pass inherits the previous pass's reordering. Each pass's
-    outputs within 2e-2 of their largest (the bound of phase 36): the
-    rectification vectors, the completion's centres and rebuild, the
-    logits. Prints how many ranks of the rectify score sort (its top-5%
-    drop) and how many FPS picks of the completion's re-sampling differ
-    between card and CPU. Returns the counts."""
+    ``PointMAEUnify`` one by one (``cls_passes``), on the card and on the
+    CPU, both bf16 in train mode (dropout and drop-path off) from the same
+    weights, at batch 8, the CPU's inputs handed across, on the
+    CPU-corrupted clouds (phase 12's draws). Each pass's outputs within
+    2e-2 of their largest (the bound of phase 36). Prints how many of the
+    rectify sort's ranks, its top-5% drop and the completion's FPS picks
+    differ between card and CPU. Returns the counts."""
     from upp_torch.train.pipeline import corrupt_batch
     from upp_torch.train.runner_cls import init_model
     args = types.SimpleNamespace(seed=SEED)
     half = half_config(config)
     cpu = torch.device("cpu")
-    models = {d: no_dropout(init_model(args, half, d)).train() for d in (device, cpu)}
+    models = {k: (no_dropout(init_model(args, half, d)).train(), d)
+              for k, d in (("got", device), ("want", cpu))}
     pts = corrupt_batch(clouds[:B_CPU].cpu(), npoints=NPOINTS, n_points_dataset=N_POINTS,
                         noisy_train=True, incomplete_cropping=True,
                         augmentation=half.get("data_augmentation"), draws=cpu_draws(B_CPU))
-    held, counts = [], {}
-
-    def hold(name, got, want):
-        diff, top = (got.cpu() - want).abs().max().item(), want.abs().max().item()
+    outs, counts = cls_passes(models, pts)
+    held = []
+    for name, (got, want) in outs.items():
+        diff, top = (got - want).abs().max().item(), want.abs().max().item()
         if not (np.isfinite(diff) and diff <= 2e-2 * top):
             raise AssertionError(f"cls bf16 passes card vs CPU: {name} differs by {diff} "
                                  f"(largest {top}) with its input handed across")
         held.append(f"{name} {diff / top:.3g}")
-
-    with torch.no_grad():
-        vec = {d: models[d].rectify_vectors(pts.to(d)) for d in models}
-        hold("rectify vectors", vec[device], vec[cpu])
-        rect = {d: models[d].drop_noisiest(pts.to(d), vec[d], NPOINTS) for d in models}
-        order = {d: rect[d][1].cpu() for d in models}
-        counts["rectify ranks"] = int((order[device] != order[cpu]).sum())
-        keep = -int(NPOINTS * 0.95)
-        counts["rectify drop"] = sum(           # points dropped on one side only
-            len(set(a[:keep].tolist()) - set(b[:keep].tolist()))
-            for a, b in zip(order[device], order[cpu]))
-        cloud = rect[cpu][0]
-        comp = {d: models[d].complete_and_resample(cloud.to(d), NPOINTS) for d in models}
-        for name, got, want in zip(("completion centres", "rebuild"), comp[device][1],
-                                   comp[cpu][1]):
-            hold(name, got, want)
-        for name, got, want in zip(("fps picks of the rebuild", "fps picks of the cloud"),
-                                   comp[device][2], comp[cpu][2]):
-            if want is not None:
-                counts[name] = int((got.cpu() != want).sum())
-        cloud = comp[cpu][0]
-        logits = {d: models[d](cloud.to(d)) for d in models}
-        hold("downstream logits", logits[device], logits[cpu])
     print(f"[cls bf16 passes card vs cpu] B={B_CPU}, each pass on the CPU's input: "
           f"{', '.join(held)} of the largest (bound 2e-2); differing between card and CPU: "
-          f"{counts['rectify ranks']} of {rect[cpu][1].numel()} rectify sort ranks, "
-          f"{counts['rectify drop']} of {-keep * B_CPU} points dropped by the top-5% drop on "
-          f"one side only, {counts['fps picks of the rebuild']} of "
-          f"{comp[cpu][2][0].numel()} FPS picks of the rebuild and "
-          f"{counts['fps picks of the cloud']} of {comp[cpu][2][1].numel()} of the joined "
-          f"cloud ({card})", flush=True)
+          f"{_choices(counts)} ({card})", flush=True)
     return counts
 
 
@@ -3070,7 +3443,7 @@ def main() -> int:
     # 25. world of one under the launcher, 26. two ranks on one card (gloo),
     # 27. two ranks on two cards (NCCL)
     phase_dist_world1(card, peft_ms)
-    phase_dist_ranks(card, device)
+    dist_ref = phase_dist_ranks(card, device)
 
     # 28. PoinTr, 29. AdaPoinTr (and its fold decoder's kNN limit), 30. AdaPoinTr
     # with every local style, 31. completion card vs CPU, 32. EMD
@@ -3130,6 +3503,15 @@ def main() -> int:
     phase_remat(config, card, device)
     phase_async_checkpoints(config, card, device)
 
+    # 46. ZeRO-3 pretrain step, 47. dp1 x tp2 cls steps, 48. the dry run and
+    # entry, 49. the cls CLI under two node groups; four cards: NCCL fsdp4 and
+    # dp2 x tp2
+    fsdp_counts = phase_fsdp(card)
+    tp_counts = phase_tp(card, dist_ref)
+    phase_dryrun(card)
+    phase_two_node_groups(card)
+    phase_four_cards(card, dist_ref)
+
     # the cls train step's forward makes the robust step's kernel calls
     kernels = [kernel_entry("fps", rows, ROBUST_CALLS, cls_counts["fps"], B, "cls train step"),
                kernel_entry("knn", rows, ROBUST_CALLS, cls_counts["knn"], B, "cls train step"),
@@ -3161,6 +3543,12 @@ def main() -> int:
                              B_REBUILD, "pretrain bf16")]
     kernels += [kernel_entry(k, denoise_rows, DENOISE_50K, denoise_counts[k], 1, "denoise 50K")
                 for k in ("fps", "knn_select")]
+    kernels += [kernel_entry(k, rows, PRETRAIN_CALLS, fsdp_counts[k], B_PRETRAIN // N_RANKS,
+                             "pretrain fsdp, rank 0 of 2") for k in ("fps", "knn")]
+    kernels += [kernel_entry("chamfer", rows, PRETRAIN_CHAMFER, fsdp_counts["chamfer"],
+                             B_REBUILD // N_RANKS, "pretrain fsdp, rank 0 of 2")]
+    kernels += [kernel_entry(k, rows, ROBUST_CALLS, tp_counts[k], B,
+                             "cls train step dp1xtp2, rank 0 of 2") for k in ("fps", "knn")]
     print("[kernels] ms/plain_ms/bound_ms summed over one step's calls of each entry's path: "
           f"fps and knn over one cls train step (B={B}, the robust step's calls), one seg "
           f"PEFT train step (B={B_SEG}), one pretrain train step (B={B_PRETRAIN}) and one "
@@ -3169,7 +3557,10 @@ def main() -> int:
           f"three over one PoinTr and one AdaPoinTr train step (B={B_COMP}), one legacy "
           f"pretask train step (B={B_PRETASK}) and the bf16 (if_half) cls, pretask and "
           f"pretrain train steps; fps and knn_select over one patch_based_denoise of 50000 "
-          f"points (B=1; library_ms: torch.cdist + topk); launches from those runs; {card}")
+          f"points (B=1; library_ms: torch.cdist + topk); all three over rank 0's ZeRO-3 "
+          f"pretrain step (B={B_PRETRAIN // N_RANKS} a rank) and fps and knn over rank 0's "
+          f"dp1 x tp2 cls PEFT step (B={B}), launched in those rank processes; launches "
+          f"from those runs; {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

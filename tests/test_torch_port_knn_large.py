@@ -85,3 +85,39 @@ def test_fps_limit_covers_the_denoise_resampling():
     = 5 re-sampling of a cluster half again its nominal 30000 points, and
     the 50K path's 150000."""
     assert fps_cuda.MAX_N == 2 ** 18 >= 5 * 45000
+
+
+@pytest.mark.parametrize("k, gather", [(6, True), (6, False), (3, True)])
+def test_kernel_path_repeats_the_farthest_past_n(monkeypatch, k, gather):
+    """``ops.knn.KnnKernel`` asks the kernel for min(k, N) neighbours and
+    repeats the farthest past N, as the JAX package and ``knn_plain`` do
+    (the tiny dry-run model groups 16 neighbours among fewer points); its
+    outputs and gradients equal the plain path's. The kernel wrapper is
+    stood in by the plain version, as it answers for k <= N."""
+    from upp_torch.ops import knn as knn_mod
+    from upp_torch.ops.geometry import index_points
+
+    def kernel(q, p, kk, g):
+        assert kk <= p.shape[1]
+        d, i = knn_plain(q, p, kk)
+        return d, i.int(), index_points(p, i) if g else None
+
+    monkeypatch.setattr(knn_cuda, "knn", kernel)
+    q0, p0 = torch.from_numpy(_cloud(2, 5, 3)), torch.from_numpy(_cloud(2, 3, 4))
+    outs, grads = [], []
+    for path in ("kernel", "plain"):
+        q, p = q0.clone().requires_grad_(True), p0.clone().requires_grad_(True)
+        if path == "kernel":
+            got = knn_mod.KnnKernel.apply(q, p, k, gather)
+        else:
+            d, i = knn_plain(q, p, k)
+            got = (d, i, index_points(p, i)) if gather else (d, i)
+        loss = (got[0] * torch.arange(k)).sum() + (got[2].sum(-1).square().sum() if gather else 0)
+        loss.backward()
+        outs.append(got)
+        grads.append((q.grad, p.grad))
+    assert outs[0][0].shape == (2, 5, k)
+    for a, b in zip(outs[0], outs[1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -76,9 +76,19 @@ def case_bn(job):
             "counts": counts}
 
 
+def _switch(model, stage):
+    """The trainable set of a stage: the PEFT list (already set), the joint
+    list, or every parameter (``full``)."""
+    if stage == "joint":
+        optim.set_trainable(model, runner_cls.JOINT_PEFT_LIST)
+    elif stage == "full":
+        optim.set_trainable(model, None)
+
+
 def case_cls(job):
     """The cls train step in float64 on this rank's rows of the clouds: one
-    PEFT step, then ``set_trainable(JOINT_PEFT_LIST)`` and one joint step;
+    PEFT step, then ``set_trainable(JOINT_PEFT_LIST)`` and one joint step
+    (``job["stages"]`` may add ``full``, every parameter trainable);
     after each the loss and accuracy, the step's gradients and the whole
     state (parameters and running statistics), and the collectives."""
     config = ConfigDict.from_nested(job["config"])
@@ -92,9 +102,8 @@ def case_cls(job):
         step = runner_cls.make_train_step(model, opt, config, args)
         pts = torch.tensor(job["clouds"][rows], dtype=torch.float64)
         labels = torch.tensor(job["labels"][rows])
-        for stage in ("peft", "joint"):
-            if stage == "joint":
-                optim.set_trainable(model, runner_cls.JOINT_PEFT_LIST)
+        for stage in job.get("stages", ("peft", "joint")):
+            _switch(model, stage)
             COUNTS.clear()
             m = step(pts, labels)
             out[stage] = {"loss": float(m["loss"]), "acc": float(m["acc"]),
@@ -218,8 +227,123 @@ def case_ckpt(job):
             "start_epoch": start}
 
 
+def _counts(model, opt):
+    """(parameter elements, moment elements) this rank holds."""
+    n_opt = sum(v.numel() for st in opt.optimizer.state.values() for v in st.values()
+                if torch.is_tensor(v) and v.dim() > 0)
+    return sum(p.numel() for p in model.parameters()), n_opt
+
+
+def case_fsdp(job):
+    """The pretrain step in float64 with ``fsdp`` (ZeRO-3 at ``min_size``)
+    and replicated, from the same seeded weights, ``len(job["steps"])``
+    steps on this rank's rows of each step's clouds (the clip on): each
+    step's loss, the whole state after it (parameters, running statistics,
+    AdamW moments, gathered), this rank's element counts; then a blocking
+    checkpoint of the sharded run, a resume of it into a fresh sharded
+    model and one more step of both; the probe's features on gathered
+    parameters of the seeded weights, in float32."""
+    from upp_torch.parallel import fsdp
+    rows = my_rows(job["steps"][0].shape[0])
+    config = ConfigDict.from_nested(job["config"])
+    args = types.SimpleNamespace(seed=0)
+    out = {}
+    with default_dtype(torch.float64):
+        def build(shard):
+            torch.manual_seed(job["seed"])
+            model = build_model_from_cfg(job["model"])
+            opt = optim.build_optimizer(config, model, steps_per_epoch=1)
+            plan = fsdp.shard_model(model, min_size=job["min_size"]) if shard else None
+            return model, opt, runner_pretrain.make_pretrain_step(model, opt, config, args), plan
+
+        def whole(model, opt):
+            return fsdp.full_state_dict(model), fsdp.full_optimizer_state_dict(model, opt)
+
+        for mode in ("replicated", "fsdp"):
+            model, opt, step, plan = build(mode == "fsdp")
+            res = out[mode] = {"loss": [], "state": [], "opt": [], "plan": plan}
+            for clouds in job["steps"]:
+                COUNTS.clear()
+                res["loss"].append(float(step(torch.tensor(clouds[rows]))["loss"]))
+                state, opt_state = whole(model, opt)
+                res["state"].append(state)
+                res["opt"].append(opt_state)
+                res["counts"] = _counts(model, opt)
+                res["collectives"] = dict(COUNTS)
+            if mode == "fsdp":
+                checkpoint.save_checkpoint(model, opt, 0, "ckpt-last", job["dir"], block=True)
+                resumed, r_opt, r_step, _ = build(True)
+                res["start_epoch"], _ = checkpoint.resume_checkpoint(
+                    resumed, r_opt, job["dir"], logger="silent", steps_per_epoch=len(job["steps"]))
+                res["resumed_state"] = whole(resumed, r_opt)
+                last = torch.tensor(job["steps"][-1][rows])
+                res["next"] = (float(step(last)["loss"]), *whole(model, opt))
+                res["resumed_next"] = (float(r_step(last)["loss"]), *whole(resumed, r_opt))
+    loader = runner_cls.sharded_loader(
+        build_dataset_from_cfg(job["probe_data"], {"subset": "test"}), 2)
+    for mode in ("replicated", "fsdp"):
+        model = build(mode == "fsdp")[0]
+        with fsdp.gathered(model):
+            out[mode]["blocks_gathered"] = sum(p.numel() for p in model.parameters())
+            out[mode]["probe"] = runner_pretrain.probe_features(model, loader, job["npoints"],
+                                                                CPU)
+        out[mode]["blocks_after"] = sum(p.numel() for p in model.parameters())
+    return out
+
+
+def case_tp(job):
+    """The cls steps of ``case_cls`` with the block products
+    split over the world (a grid of one data rank and ``world`` model
+    ranks, ``parallel.tensor``), each rank on every cloud; the gradients and
+    the state gathered whole; this rank's block shapes."""
+    from upp_torch.parallel import tensor
+    from upp_torch.parallel.dist import clear_grid, make_grid, model_group
+    config = ConfigDict.from_nested(job["config"])
+    args = types.SimpleNamespace(**job["args"])
+    out = {}
+    make_grid(get_dist_info()[1])
+    try:
+        with default_dtype(torch.float64):
+            model = runner_cls.init_model(args, config, CPU)
+            optim.set_trainable(model, runner_cls.PEFT_LIST)
+            tensor.shard_model(model, model_group())
+            out["shapes"] = {n: tuple(p.shape) for n, p in model.named_parameters()}
+            opt = optim.build_optimizer(config, model, steps_per_epoch=1)
+            step = runner_cls.make_train_step(model, opt, config, args)
+            pts = torch.tensor(job["clouds"], dtype=torch.float64)
+            labels = torch.tensor(job["labels"])
+            for stage in job.get("stages", ("peft", "joint")):
+                _switch(model, stage)
+                COUNTS.clear()
+                m = step(pts, labels)
+                out[stage] = {"loss": float(m["loss"]), "acc": float(m["acc"]),
+                              "counts": dict(COUNTS), "state": tensor.full_state_dict(model),
+                              "grads": {n: tensor.full_tensor(model, n, p.grad).clone()
+                                        for n, p in model.named_parameters()
+                                        if p.grad is not None}}
+    finally:
+        clear_grid()
+    return out
+
+
+def case_fsdp_runner(job):
+    """``runner_pretrain.run_net`` with ``fsdp: true``: epoch 0 (its probe
+    and ``ckpt-last``), then ``--resume`` through epoch 1; the start epoch
+    of the resume read from the log, the probe accuracies."""
+    config = ConfigDict.from_nested(job["config"])
+    log, lines = _logger(f"fsdp_runner_{get_dist_info()[0]}")
+    accs = []
+    for max_epoch, resume in ((0, False), (1, True)):
+        config.max_epoch = max_epoch
+        args = types.SimpleNamespace(seed=0, device="cpu", resume=resume,
+                                     experiment_path=job["dir"], log_name=log.name, val_freq=1)
+        accs.append(runner_pretrain.run_net(args, config).acc)
+    return {"lines": lines, "accs": accs}
+
+
 CASES = {"bn": case_bn, "cls": case_cls, "pretrain": case_pretrain, "eval": case_eval,
-         "ckpt": case_ckpt}
+         "ckpt": case_ckpt, "fsdp": case_fsdp, "tp": case_tp, "tp_full": case_tp,
+         "fsdp_runner": case_fsdp_runner}
 
 
 def main(argv):

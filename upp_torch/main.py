@@ -23,6 +23,9 @@ Data-parallel over N cards (one process each):
     python -m torch.distributed.run --standalone --nproc_per_node N \
         -m upp_torch.main --launcher pytorch --peft_model --config ...
 
+or over several hosts (``--nnodes H --node_rank h --master_addr ADDR
+--master_port PORT`` in place of ``--standalone``; ranks are numbered
+across the hosts, and whatever only rank 0 does reads the global rank).
 Each rank takes ``total_bs // N`` clouds of every batch (``extra_train``:
 twice that), draws for the global batch and keeps its rows, normalises with
 the global batch's BatchNorm statistics and averages the gradients, so N
@@ -59,7 +62,7 @@ def main(argv=None):
     if args.launcher != "pytorch":
         return _run(args, rank=0, world=1)
     import torch.distributed as dist
-    args.device = str(init_dist(args.launcher, args.device))
+    args.device = str(init_dist(args.launcher, args.device, backend=args.dist_backend))
     try:
         # ranks started a second apart stamp different times: take rank 0's
         args.experiment_path, args.tfboard_path = broadcast_object(

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import shard
-from ..parallel.dist import all_reduce_sum
+from ..parallel.dist import all_reduce_sum, data_group
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -129,15 +129,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor, half: bool) -> torch.Tensor:
     return half_matmul(a, b) if half else a @ b
 
 
-def linear(x: torch.Tensor, layer: nn.Linear, half: bool) -> torch.Tensor:
+def linear(x: torch.Tensor, layer: nn.Linear, half: bool, bias: bool = True) -> torch.Tensor:
     """``layer(x)``, or with ``half`` its product by ``half_matmul`` and the
-    float32 bias added after (in the GEMM's epilogue on the card)."""
+    float32 bias added after (in the GEMM's epilogue on the card); without
+    ``bias`` the product alone."""
+    b = layer.bias if bias else None
     if not half:
-        return layer(x)
+        return layer(x) if bias else F.linear(x, layer.weight)
     if x.device.type == "cuda":
-        return _HalfLinear.apply(x, layer.weight, layer.bias)
+        return _HalfLinear.apply(x, layer.weight, b)
     y = half_matmul(x, layer.weight.t())
-    return y if layer.bias is None else y + layer.bias
+    return y if b is None else y + b
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -188,20 +190,22 @@ def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> tor
 
 def global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, flat: torch.Tensor) -> torch.Tensor:
     """Train-mode BatchNorm of this rank's rows ``flat`` [n, C] with the
-    statistics of every rank's rows (the reference's SyncBN, the JAX step's
-    global batch): the count and the sum are all-reduced for the mean, then
-    the centred sum of squares for the biased variance, which normalises
-    (two passes: a one-pass sum of squares drifts in float32). The running
+    statistics of every data rank's rows (the reference's SyncBN, the JAX
+    step's global batch; ``dist.data_group``): the count and the sum are
+    all-reduced for the mean, then the centred sum of squares for the
+    biased variance, which normalises (two passes: a one-pass sum of
+    squares drifts in float32). The running
     statistics take the mean and the unbiased variance over the global
     count, torch's semantics (``upp_tpu/models/layers.py:41``). The
     all-reduces are differentiable: their backward sums the gradients over
     ranks, which with the optimizer's mean over ranks gives the one-process
     gradient."""
-    total = all_reduce_sum(torch.cat([flat.sum(0), flat.new_full((1,), flat.shape[0])]))
+    total = all_reduce_sum(torch.cat([flat.sum(0), flat.new_full((1,), flat.shape[0])]),
+                           data_group())
     count = total[-1]
     mean = total[:-1] / count
     centred = flat - mean
-    var = all_reduce_sum((centred * centred).sum(0)) / count
+    var = all_reduce_sum((centred * centred).sum(0), data_group()) / count
     y = centred * torch.rsqrt(var + bn.eps)
     if bn.affine:
         y = y * bn.weight + bn.bias
@@ -261,16 +265,26 @@ class PosEmbedMLP(TwoLayerHead):
 
 class Mlp(nn.Module):
     """Transformer MLP (``Point_MAE_unify.py:226-242``); dropout 0. With
-    ``compute_dtype`` bf16 its two products are ``half_matmul``s."""
+    ``compute_dtype`` bf16 its two products are ``half_matmul``s. Under
+    tensor parallelism (``tp``, set by ``parallel.tensor``) ``fc1`` holds
+    this rank's rows (column parallel) and ``fc2`` the matching columns
+    (row parallel): ``fc1``'s bias, replicated as in JAX, is sliced at use,
+    and ``fc2``'s is added once, after the sum over the model group."""
 
     def __init__(self, dim: int, hidden: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.half = compute_dtype == torch.bfloat16
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp = None
 
     def forward(self, x):
-        return linear(F.gelu(linear(x, self.fc1, self.half)), self.fc2, self.half)
+        tp = self.tp
+        if tp is None:
+            return linear(F.gelu(linear(x, self.fc1, self.half)), self.fc2, self.half)
+        h = linear(tp.copy_in(x), self.fc1, self.half, bias=False)
+        h = F.gelu(h + tp.local_rows(tp.copy_in(self.fc1.bias)))
+        return tp.reduce_out(linear(h, self.fc2, self.half, bias=False)) + self.fc2.bias
 
 
 class Attention(nn.Module):
@@ -278,7 +292,11 @@ class Attention(nn.Module):
     (``Point_MAE_unify.py:245-269``), written out as matrix products. With
     ``compute_dtype`` bf16 the four products are ``half_matmul``s: q, k, v
     and the probabilities enter theirs as bf16, the scores and the softmax
-    stay float32 (``upp_tpu/models/scan_blocks.py:336-351``)."""
+    stay float32 (``upp_tpu/models/scan_blocks.py:336-351``). Under tensor
+    parallelism (``tp``, set by ``parallel.tensor``) ``qkv`` holds the q, k
+    and v rows of this rank's whole heads (column parallel) and ``proj``
+    the matching columns (row parallel), its bias added once, after the sum
+    over the model group."""
 
     def __init__(self, dim: int, num_heads: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -286,16 +304,21 @@ class Attention(nn.Module):
         self.half = compute_dtype == torch.bfloat16
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None
 
     def forward(self, x):
         B, N, C = x.shape
-        H = self.num_heads
-        hd = C // H
-        qkv = linear(x, self.qkv, self.half).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        tp = self.tp
+        hd = C // self.num_heads
+        H = self.num_heads // (tp.size if tp is not None else 1)
+        qkv = linear(x if tp is None else tp.copy_in(x), self.qkv, self.half)
+        qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                     # [B, H, N, hd]
         attn = torch.softmax(matmul(q, k.transpose(-2, -1), self.half) * hd ** -0.5, dim=-1)
-        out = matmul(attn, v, self.half).transpose(1, 2).reshape(B, N, C)
-        return linear(out, self.proj, self.half)
+        out = matmul(attn, v, self.half).transpose(1, 2).reshape(B, N, H * hd)
+        if tp is None:
+            return linear(out, self.proj, self.half)
+        return tp.reduce_out(linear(out, self.proj, self.half, bias=False)) + self.proj.bias
 
 
 class Adapter(nn.Module):

@@ -48,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.geometry import index_points
 from ..ops.propagate import inverse_distance_interp
 from ..parallel import shard
-from ..parallel.dist import all_gather_rows
+from ..parallel.dist import all_gather_rows, data_group
 from .blocks import PrompterConfig
 from .layers import (BN_EPS, Adapter, Attention, Mlp, batch_norm_last, drop_path,
                      layer_norm)
@@ -146,8 +146,8 @@ class PromptedBlock(nn.Module):
             first = 0                   # this shard's first cloud in the global batch
             sh = shard.current()
             if self.training and sh.is_global:
-                # the flat rows span the global batch: gather every rank's
-                flat = all_gather_rows(flat)
+                # the flat rows span the global batch: gather every data rank's
+                flat = all_gather_rows(flat, data_group())
                 first = sh.rank * B
             off = ((torch.arange(B, device=x.device) + first) * g)[:, None, None]
             neigh = flat[(n_idx + off).reshape(-1)].reshape(B, g2, k, C)

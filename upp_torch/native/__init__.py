@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import os
 import platform
+import secrets
 import subprocess
 import threading
 from pathlib import Path
@@ -47,7 +49,9 @@ def _target() -> Path:
 
 def _build(out: Path) -> bool:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{id(out)}.tmp")
+    # a name no other process builds into (several local rank 0s of one
+    # machine may build at once); the rename below is atomic
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{secrets.token_hex(4)}.tmp")
     try:
         subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=240)

@@ -38,13 +38,7 @@ def knn_plain(query: torch.Tensor, points: torch.Tensor, k: int
     dz = q[..., 2][:, :, None] - p[..., 2][:, None, :]
     d = dx * dx + dy * dy + dz * dz                       # [B, S, N]
     d, idx = torch.sort(d, dim=-1, stable=True)
-    n = points.shape[1]
-    if k > n:
-        pad = k - n
-        d = torch.cat([d, d[..., -1:].expand(*d.shape[:-1], pad)], -1)
-        idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:-1], pad)], -1)
-        return d, idx
-    return d[..., :k], idx[..., :k]
+    return _repeat_last(d[..., :k], k, 2), _repeat_last(idx[..., :k], k, 2)
 
 
 def knn_backward(query: torch.Tensor, points: torch.Tensor, idx: torch.Tensor,
@@ -65,23 +59,38 @@ def knn_backward(query: torch.Tensor, points: torch.Tensor, idx: torch.Tensor,
     return g_q.to(query.dtype), g_p.reshape(points.shape).to(points.dtype)
 
 
+def _repeat_last(t: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """``t`` extended to ``k`` along ``dim`` by repeating its last entry."""
+    n = t.shape[dim]
+    if k <= n:
+        return t
+    shape = list(t.shape)
+    shape[dim] = k - n
+    return torch.cat([t, t.narrow(dim, n - 1, 1).expand(shape)], dim)
+
+
 class KnnKernel(torch.autograd.Function):
     """The kNN kernels with a backward: forward (query [B,S,3], points
     [B,N,3], k, gather) -> (d, idx int64[, nbr]) from ``knn_cuda.knn``, or
-    past its limits from ``knn_cuda.knn_select`` and ``index_points``."""
+    past its limits from ``knn_cuda.knn_select`` and ``index_points``. For
+    k > N the kernel finds all N and the farthest is repeated, as in the
+    JAX package (``knn.py:45-51``) and ``knn_plain``."""
 
     @staticmethod
     def forward(ctx, query, points, k: int, gather: bool):
         from . import knn_cuda
         q = query.detach().float().contiguous()
         p = points.detach().float().contiguous()
-        if k <= knn_cuda.MAX_K and p.shape[1] <= knn_cuda.MAX_N:
-            d, idx, nbr = knn_cuda.knn(q, p, k, gather)
+        n_k = min(k, p.shape[1])
+        if n_k <= knn_cuda.MAX_K and p.shape[1] <= knn_cuda.MAX_N:
+            d, idx, nbr = knn_cuda.knn(q, p, n_k, gather)
             idx = idx.long()
         else:
-            d, idx = knn_cuda.knn_select(q, p, k)
+            d, idx = knn_cuda.knn_select(q, p, n_k)
             idx = idx.long()
             nbr = index_points(p, idx) if gather else None
+        d, idx = _repeat_last(d, k, 2), _repeat_last(idx, k, 2)
+        nbr = None if nbr is None else _repeat_last(nbr, k, 2)
         ctx.mark_non_differentiable(idx)
         ctx.save_for_backward(query, points, idx, nbr)
         if gather:

@@ -28,7 +28,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from .dist import get_dist_info
+from .dist import data_info
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,8 +66,10 @@ class Shard:
 
 
 def this_rank() -> Shard:
-    """This rank's block of a train step's global batch."""
-    return Shard(*get_dist_info())
+    """This rank's block of a train step's global batch: its place in the
+    data group (``dist.data_group``); the ranks of a model group hold the
+    same block and draw the same."""
+    return Shard(*data_info())
 
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(

@@ -8,7 +8,10 @@ finished and the metric dict. One process writes it (rank 0 of several),
 through a temporary file and a rename, so a crash never leaves a torn
 checkpoint. Every rank loads it whole: a checkpoint of N ranks is a
 one-process checkpoint (the model unwrapped, no ``module.`` prefix), and
-loads into any number of ranks.
+loads into any number of ranks. A ZeRO-3 model (``parallel.fsdp``) is
+gathered whole on every rank, synchronously and outside the writer
+thread, before rank 0 writes, and a resume shards the whole file again
+(``upp_tpu/train/checkpoint.py:96-109``, ``runner_pretrain.py:170-177``).
 
 ``save_checkpoint`` is asynchronous by default, as in the JAX package: the
 state is copied on its device at once (the next optimizer step writes the
@@ -32,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel import fsdp
 from ..parallel.dist import barrier, get_dist_info
 from ..utils.logger import print_log
 
@@ -91,13 +95,18 @@ def save_checkpoint(model: nn.Module, optimizer, epoch: int, prefix: str,
     writes before returning, after any write in flight on the path, and
     then waits for every rank."""
     path = checkpoint_path(experiment_path, prefix)
+    if fsdp.is_sharded(model):      # a collective: every rank, on this thread
+        model_state = fsdp.full_state_dict(model)
+        optimizer_state = fsdp.full_optimizer_state_dict(model, optimizer)
     if get_dist_info()[0] != 0:
         if block:
             barrier()
         return path
     os.makedirs(experiment_path, exist_ok=True)
-    payload = {"base_model": _snapshot(model.state_dict()),
-               "optimizer": _snapshot(optimizer.state_dict()),
+    if not fsdp.is_sharded(model):
+        model_state = _snapshot(model.state_dict())
+        optimizer_state = _snapshot(optimizer.state_dict())
+    payload = {"base_model": model_state, "optimizer": optimizer_state,
                "epoch": int(epoch), "metrics": dict(metrics or {})}
     err_box: List[BaseException] = []
 
@@ -170,8 +179,13 @@ def resume_checkpoint(model: nn.Module, optimizer, experiment_path: str,
         print_log(f"[RESUME] no checkpoint at {path}", logger=logger)
         return 0, {}
     state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state["base_model"], strict=True)
     start_epoch = int(state["epoch"]) + 1
-    optimizer.load_state_dict(state["optimizer"], num_steps=start_epoch * steps_per_epoch)
+    num_steps = start_epoch * steps_per_epoch
+    if fsdp.is_sharded(model):
+        fsdp.load_full_state(model, state["base_model"], optimizer, state["optimizer"],
+                             num_steps=num_steps)
+    else:
+        model.load_state_dict(state["base_model"], strict=True)
+        optimizer.load_state_dict(state["optimizer"], num_steps=num_steps)
     print_log(f"[RESUME] restored ckpt @ epoch {state['epoch']}", logger=logger)
     return start_epoch, dict(state.get("metrics") or {})

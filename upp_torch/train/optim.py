@@ -34,10 +34,15 @@
   sums as the port does, and every shipped config sets
   ``step_per_update: 1``.
 * Over several ranks each real step first averages the gradients over
-  ranks (one all-reduce of the parameters that are trainable now, so a
+  the ranks (one all-reduce of the parameters that are trainable now, so a
   joint switch needs no re-wrap, as ``DistributedDataParallel``'s fixed
   buckets would), then clips: the clip sees the global gradient, as the
-  JAX step's.
+  JAX step's. A parameter split over ranks (``_upp_split``: a ZeRO-3 block
+  from ``parallel.fsdp``, whose gradient arrives averaged, or a
+  tensor-parallel block from ``parallel.tensor``, averaged over the data
+  ranks) counts its squares on the ranks that hold it: the global norm
+  all-reduces each group's sum of squares and counts a replicated tensor
+  once.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..parallel.dist import average_gradients
+from ..parallel.dist import _all_reduce, average_gradients, data_group
 
 
 def peft_detect(name: str, targets: Iterable[str]) -> bool:
@@ -152,9 +157,18 @@ class ScheduledOptimizer:
                     p.grad = None
                 elif p.grad is not None:
                     params.append(p)
-        average_gradients(params)
+        # a replicated tensor over every rank: under tensor parallelism the
+        # model ranks hold its gradient equal in exact arithmetic, and the
+        # mean keeps their copies equal where the card's atomic adds round
+        # apart; a tensor-parallel block over its data ranks; a ZeRO-3
+        # block's gradient arrives averaged
+        average_gradients([p for p in params if split_of(p)[0] is None])
+        average_gradients([p for p in params if split_of(p)[0] == "tp"], data_group())
         if self.clip is not None:
-            torch.nn.utils.clip_grad_norm_(params, self.clip)
+            if any(split_of(p)[0] for p in params):
+                clip_grad_norm(params, self.clip)
+            else:
+                torch.nn.utils.clip_grad_norm_(params, self.clip)
         self.optimizer.step()
         self.num_steps += 1
 
@@ -171,6 +185,35 @@ class ScheduledOptimizer:
         self.num_steps = int(state.pop("num_steps", num_steps))
         self.micro_steps = 0
         self.optimizer.load_state_dict(state)
+
+
+def split_of(p: torch.Tensor):
+    """(kind, group) of a parameter split over ranks: ("fsdp", data group)
+    or ("tp", model group); (None, None) for a replicated one."""
+    return getattr(p, "_upp_split", (None, None))
+
+
+def clip_grad_norm(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``clip_grad_norm_`` on the global gradient of parameters of which
+    some are split over ranks: each group's sum of squared norms is
+    all-reduced over it, a replicated tensor counts once; the same
+    coefficient, ``max_norm / (norm + 1e-6)`` at most 1, scales every
+    gradient. Returns the global norm."""
+    sums, groups = {}, {}
+    for p in params:
+        kind, group = split_of(p)
+        key = id(group) if kind else None
+        groups[key] = group
+        sums.setdefault(key, []).append(torch.linalg.vector_norm(p.grad, 2.0) ** 2)
+    total = torch.stack(sums.pop(None)).sum() if None in sums else None
+    for key, sq in sums.items():
+        part = _all_reduce(torch.stack(sq).sum(), "gradients", groups[key])
+        total = part if total is None else total + part
+    norm = total.sqrt()
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for p in params:
+        p.grad.mul_(coef)
+    return norm
 
 
 def step_generator(gens: dict, device: torch.device, seed: int,

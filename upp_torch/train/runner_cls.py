@@ -30,7 +30,7 @@ from ..models import MODELS, build_model_from_cfg
 from ..ops.corrupt import normalize_unit_sphere, scale_translate
 from ..ops.fps import fps
 from ..parallel import shard
-from ..parallel.dist import gather_samples, get_dist_info, reduce_mean
+from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .ckpt_io import load_weights
@@ -128,7 +128,7 @@ def make_train_step(model, optimizer, config, args):
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]))
+        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
         return {"loss": loss, "acc": acc}
 
     return train_step

@@ -29,7 +29,7 @@ from ..ops.corrupt import (gaussian_shell_noise, lidar_noise, partial_point_clou
                            separate_point_cloud)
 from ..ops.fps import fps
 from ..parallel import shard
-from ..parallel.dist import gather_samples, get_dist_info, reduce_mean
+from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, CDMetric, Metrics, completion_metrics
@@ -139,7 +139,7 @@ def make_pretask_train_step(model, optimizer, config, args):
         optimizer.step()
         terms = reduce_mean(torch.stack([cropping_coarse * 1000, cropping_dense * 1000,
                                          dense * 1000, noise_loss * 1000,
-                                         recall * 100]).detach())
+                                         recall * 100]).detach(), data_group())
         return dict(zip(LOSS_NAMES, terms))
 
     return train_step

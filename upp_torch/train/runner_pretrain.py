@@ -8,7 +8,10 @@ SVM probe over the encoder's features (``svm_probe``), when the config has
 an ``extra_train`` and a ``val`` split. Over several ranks each trains on
 its shard of every batch (``parallel.shard``); the probe's features are
 gathered from every rank before the fit, as
-``upp_tpu/train/runner_pretrain.py:59-103`` gathers them.
+``upp_tpu/train/runner_pretrain.py:59-103`` gathers them. With ``fsdp:
+true`` over several ranks the parameters and the AdamW moments are sharded
+ZeRO-3 over them (``parallel.fsdp``, ``runner_pretrain.py:152-177``); the
+probe runs on the gathered parameters.
 """
 
 from __future__ import annotations
@@ -23,8 +26,9 @@ import torch
 from .. import resolve_device
 from ..data import build_dataset_from_cfg
 from ..ops.fps import fps
-from ..parallel import shard
-from ..parallel.dist import broadcast_object, gather_samples, get_dist_info, reduce_mean
+from ..parallel import fsdp, shard
+from ..parallel.dist import (broadcast_object, data_group, data_info, gather_samples,
+                             get_dist_info, reduce_mean)
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AccMetric, AverageMeter
@@ -59,7 +63,7 @@ def make_pretrain_step(model, optimizer, config, args):
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return {"loss": reduce_mean(loss.detach())}
+        return {"loss": reduce_mean(loss.detach(), data_group())}
 
     return train_step
 
@@ -90,8 +94,9 @@ def svm_probe(model, train_loader, val_loader, npoints: int, device: torch.devic
     both gathered from every rank; rank 0 fits, and every rank returns its
     accuracy (the fit draws from numpy's global RNG, which ranks need not
     share). Needs scikit-learn, imported here, as in JAX."""
-    x_tr, y_tr = probe_features(model, train_loader, npoints, device)
-    x_te, y_te = probe_features(model, val_loader, npoints, device)
+    with fsdp.gathered(model):          # each rank's rows, no collective a batch
+        x_tr, y_tr = probe_features(model, train_loader, npoints, device)
+        x_te, y_te = probe_features(model, val_loader, npoints, device)
     acc = None
     if get_dist_info()[0] == 0:
         from sklearn.svm import LinearSVC
@@ -111,9 +116,10 @@ def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     ``ckpt-best`` on the probe's accuracy, ``ckpt-last`` every epoch and
     ``ckpt-epoch-XXX`` every 25 epochs from 250; a warm start from
     ``--start_ckpts`` (or ``--ckpts``) unless ``--resume``. The loss is
-    fetched once per epoch. ``fsdp`` has no effect: over several ranks
-    every rank holds the whole model and optimizer state (the same step as
-    JAX's ZeRO-3 sharding, without its memory saving). The writers get the epoch's mean loss x1000
+    fetched once per epoch. ``fsdp: true`` over several ranks shards the
+    parameters and moments over them after the warm start; a resume loads
+    the whole checkpoint and shards it again; checkpoints hold the whole
+    state. The writers get the epoch's mean loss x1000
     (``Loss/Epoch/Loss_1``), its learning rate and the probe accuracy.
     Returns the best probe accuracy."""
     device = resolve_device(getattr(args, "device", None))
@@ -140,6 +146,11 @@ def run_net(args, config, train_writer=None, val_writer=None) -> AccMetric:
     trainable, total = count_params(model)
     print_log(f"# TrainableParams: {trainable / 1e6:.2f} M / {total / 1e6:.2f} M",
               logger=logger)
+    if bool(config.get("fsdp", False)) and data_info()[1] > 1:
+        fsdp.shard_model(model, data_group())
+        print_log(f"[fsdp] ZeRO-3 over {data_info()[1]} ranks: this rank holds "
+                  f"{fsdp.persistent_bytes(model)[0] / 1e6:.1f} MB of parameters",
+                  logger=logger)
 
     start_epoch, best = 0, AccMetric(0.0)
     if resume:

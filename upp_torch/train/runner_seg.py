@@ -23,7 +23,7 @@ from ..data import build_dataset_from_cfg
 from ..data.partnormal import SEG_CLASSES
 from ..ops.corrupt import gaussian_shell_noise, lidar_noise, separate_point_cloud
 from ..parallel import shard
-from ..parallel.dist import gather_samples, reduce_mean
+from ..parallel.dist import data_group, gather_samples, reduce_mean
 from ..utils.logger import get_logger, print_log
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, nll_seg_loss, seg_miou_metrics
@@ -100,7 +100,7 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]))
+        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
         return {"loss": loss, "acc": acc}
 
     return train_step

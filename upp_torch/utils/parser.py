@@ -1,6 +1,7 @@
 """CLI argument surface — flag-compatible with the reference
 (``utils/parser.py:5-127``). ``--launcher pytorch`` runs one rank of a
-data-parallel run that ``torchrun`` started (``parallel.dist.init_dist``);
+data-parallel run that ``torchrun`` started (``parallel.dist.init_dist``;
+``--dist_backend`` picks its backend);
 ``--sync_bn`` is accepted and changes nothing, since BatchNorm always takes
 the global batch's statistics, as in the JAX package. ``--device`` names the
 device (CUDA unless told otherwise), and ``--test`` without ``--ckpts``
@@ -25,6 +26,9 @@ def get_args(argv=None):
                         help="'pytorch': one rank of a data-parallel run started by "
                              "torchrun (python -m torch.distributed.run); each rank "
                              "takes total_bs // world_size clouds of every batch")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="the process group's backend: NCCL on CUDA and gloo on "
+                             "the CPU by default; gloo ranks may share a card")
     parser.add_argument("--local_rank", type=int,
                         default=int(os.environ.get("LOCAL_RANK", 0)),
                         help="this rank's card; torchrun's LOCAL_RANK by default")
