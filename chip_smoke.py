@@ -224,9 +224,14 @@ Phases, each fatal on failure:
      saved clouds (FPS outputs) equal;
  41. the patch denoiser's kernels against their plain versions (batch 1):
      FPS variant 6 (N > 16384, a 16-block cluster a cloud) index-identical
-     at 16385 → 512, 50000 → 150, 150000 → 50000, 30000 → 10000, 10000 →
-     30, masked 20000 → 256, its limit 262144 → 256 and a 60000-point tie
-     cloud → 6000; the large-k kNN (``csrc/knn_select.cu``) index-identical
+     at 16385 → 512, 50000 → 150, 150000 → 50000 and 30000 → 10000 (these
+     two on the patch layout ``patch_based_denoise`` gives them, the first
+     also on a noisy sphere cloud in random order), 10000 → 30, masked
+     20000 → 256, its limit 262144 → 256 and a 60000-point tie cloud →
+     6000, each with its instance (points a thread, warps a block, x y z
+     in registers or shared memory), µs a round and the share of
+     warp-rounds that skipped their points (``fps_cuda.cluster_skip_stats``,
+     whose indices must equal ``fps_idx``'s); the large-k kNN (``csrc/knn_select.cu``) index-identical
      with bit-equal distances and ``knn_points``' gather equal at (1, 150,
      50000, k=1000), (1, 30, 10000, 1000), (4, 64, 16385, 65), (2, 8, 2048,
      1024) and (1, 4, 100000, 500) (distances in global scratch), on noisy
@@ -277,6 +282,8 @@ Phases, each fatal on failure:
      ``ckpt-last.pth`` equal bit for bit. With four cards or more, ZeRO-3
      over four NCCL ranks (as phase 46) and dp2 x tp2 over NCCL (as phase
      47) run too; else a line says why not.
+Phase 2 times ``torch.topk(torch.cdist(q, p).square(), k, largest=False)``
+beside each kNN path shape (the ``kernels`` line's ``library_ms`` of knn).
 Phase 2 also holds FPS and kNN at every seg shape at batch 30, on the seg
 clouds and on tie-heavy grid clouds of 2048 points; FPS, kNN and Chamfer at
 the pretrain shapes (batch 128; Chamfer over 4864 clouds of 32 points) and
@@ -299,8 +306,8 @@ train step, of one legacy pretask train step and of the bf16 cls, pretask
 and pretrain train steps; each entry names its ``path``) and the card's
 name and power limit; the ``kernels`` line also has fps and knn_select
 entries for one ``patch_based_denoise`` of 50000 points (phase 42's
-launches, phase 41's times; knn_select's ``library_ms`` is
-``torch.cdist`` + ``topk``); fps, knn and chamfer entries for rank 0 of
+launches, phase 41's times of the path's layouts; knn's and knn_select's
+``library_ms`` is ``torch.cdist`` + ``topk``); fps, knn and chamfer entries for rank 0 of
 phase 46's ZeRO-3 pretrain step (64 clouds a rank; its Chamfer over 2432
 clouds of 32) and fps and knn for rank 0 of phase 47's dp1 x tp2 cls PEFT
 step (120 clouds), launches counted in those rank processes; the last line
@@ -661,29 +668,41 @@ def kernel_shapes():
             + [(c, B_WIDE) for c in KNN_WIDE_CALLS])
 
 
-def _check_fps(call, clouds, gen, reps=10, plain_reps=2):
-    from upp_torch.ops import fps_cuda
+def fps_masks(xyz, gen):
+    """(valid, start) of a masked FPS call: the viewpoint crop's kept points
+    and the nearest of them to the viewpoint, as ``corrupt_batch`` gives."""
     from upp_torch.ops.corrupt import _crop_masks
+    d, crop = _crop_masks(xyz, xyz.shape[1] // 4, None, gen)
+    valid = ~crop
+    return valid, torch.where(valid, d, torch.inf).argmin(1)
+
+
+def _check_fps(call, clouds, gen, reps=10, plain_reps=2, masks=None):
+    """Kernel vs plain at ``call`` on ``clouds``; a masked call takes
+    ``masks`` (valid, start) or draws them from ``gen``. The plain run that
+    checks the kernel is the plain version's warm-up, or with ``plain_reps``
+    1 its timed run (the denoise shapes' plain loops take seconds)."""
+    from upp_torch.ops import fps_cuda
     from upp_torch.ops.fps import fps_plain_idx
     from upp_torch.ops.geometry import index_points
     _, n, s, masked = call
     xyz = clouds[:, :n].contiguous()
     valid = start = None
     if masked:
-        d, crop = _crop_masks(xyz, n // 4, None, gen)
-        valid = ~crop
-        start = torch.where(valid, d, torch.inf).argmin(1)
+        valid, start = masks or fps_masks(xyz, gen)
     k_idx = fps_cuda.fps_idx(xyz, s, valid, start)
-    p_idx = fps_plain_idx(xyz, s, valid, start)
-    torch.cuda.synchronize()
+    out = []
+    plain_ms = cuda_ms(lambda: out.append(fps_plain_idx(xyz, s, valid, start)), reps=1, warmup=0)
+    p_idx = out[0]
     if not torch.equal(k_idx.long(), p_idx):
         bad = (k_idx.long() != p_idx).sum().item()
         raise AssertionError(f"FPS {call}: {bad} indices differ from the plain version")
     err = (index_points(xyz, k_idx.long()) - index_points(xyz, p_idx)).abs().max().item()
     FPS_N_RUN.add(n)
     ms = cuda_ms(lambda: fps_cuda.fps_idx(xyz, s, valid, start), reps=reps)
-    plain_ms = cuda_ms(lambda: fps_plain_idx(xyz, s, valid, start), reps=plain_reps,
-                       warmup=min(plain_reps, 1))
+    if plain_reps > 1:
+        plain_ms = cuda_ms(lambda: fps_plain_idx(xyz, s, valid, start), reps=plain_reps,
+                           warmup=0)
     return err, ms, plain_ms
 
 
@@ -792,15 +811,31 @@ def phase_kernels(clouds, seg_clouds, comp_clouds, card):
                B_COMP: comp_clouds, B_WIDE: wide}
     rows = []
     for call, bsz in kernel_shapes():
-        src = sources.get(bsz, clouds)
-        err, ms, plain_ms = _check(call, src[:bsz].contiguous(), gen)
+        src = sources.get(bsz, clouds)[:bsz].contiguous()
+        err, ms, plain_ms = _check(call, src, gen)
         nbytes, ops = bound_parts(call, bsz)
         rows.append({"call": list(call), "batch": bsz, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bytes": nbytes, "ops": ops})
+        lib = ""
+        if call[0] == "knn":
+            rows[-1]["library_ms"] = knn_library_ms(call, src)
+            lib = f", cdist + topk {rows[-1]['library_ms']:.4f} ms"
         print(f"[kernel] {call}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms(nbytes, ops):.4f} ms "
+              f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms(nbytes, ops):.4f} ms "
               f"(B={bsz}; {card})", flush=True)
     return rows
+
+
+def knn_library_ms(call, clouds):
+    """ms of ``torch.topk(torch.cdist(q, p).square(), k, largest=False)`` at
+    a kNN call's shape, on the inputs ``_check_knn`` gives the kernel: one
+    PyTorch call computing the kNN (the yardstick of the ``kernels`` line's
+    ``library_ms``; the port never calls it)."""
+    _, s, n, k, _ = call
+    points = clouds[:, :n].contiguous()
+    query = clouds[:, :s].contiguous()
+    return cuda_ms(lambda: torch.topk(torch.cdist(query, points).square(), k, largest=False),
+                   reps=10)
 
 
 def phase_kernel_ties_and_edges(card):
@@ -3084,32 +3119,65 @@ def scan_cloud(n, seed, device):
                             ).to(device)
 
 
+def patch_cloud(n, seed, device):
+    """[1, 3n, 3]: the re-sampling FPS's input of ``patch_based_denoise`` on
+    ``scan_cloud(n, seed)`` with the affine stand-in: its 3n / 1000 seeds'
+    patches of 1000 nearest points, end to end (the port's FPS and kNN on
+    the card build it, as the path does)."""
+    from upp_torch.ops.knn import knn_points
+    from upp_torch.utils.denoise import farthest_point_sampling
+    pcl = scan_cloud(n, seed, device)[None]
+    seeds, _ = farthest_point_sampling(pcl, 3 * n // 1000)
+    _, _, patches = knn_points(seeds, pcl, 1000)
+    den = AffineDenoiser().denoise_langevin_dynamics(patches[0], 0.2, 4, 0.95, 30)
+    return den.reshape(1, -1, 3).contiguous()
+
+
 def phase_denoise_kernels(card):
     """Phase 41: FPS variant 6 and the large-k kNN against their plain
-    versions on the card at the denoise shapes (batch 1 unless given), on
-    noisy-sphere clouds and on tie-heavy grid clouds. FPS indices equal;
-    kNN indices equal, distances bit-equal, the gathered xyz equal. Kernel,
+    versions on the card at the denoise shapes (batch 1 unless given): the
+    re-sampling FPS calls (3N -> N) on the patch layout the denoiser gives
+    them (``patch_cloud``), the others on noisy-sphere clouds, the
+    150000-point call also on the same cloud in random order, and tie-heavy
+    grid clouds. FPS indices equal, each call's instance of variant 6, µs a
+    round and the share of warp-rounds that skipped their points; kNN
+    indices equal, distances bit-equal, the gathered xyz equal. Kernel,
     plain and ``torch.cdist`` + ``topk`` ms. Then every FPS variant must
-    have run over phases 2 and 41. Returns per-shape rows."""
+    have run over phases 2 and 41. Returns per-shape rows (of the path's
+    layouts)."""
     from upp_torch.ops import fps_cuda, knn_cuda
     from upp_torch.ops.geometry import index_points
     from upp_torch.ops.knn import knn_plain, knn_points
     gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
     rows = []
-    cases = [("", call, scan_cloud(call[1], i, "cuda")[None].contiguous())
+    cases = [("patches", call, patch_cloud(call[1] // 3, i, "cuda")) if call[1] == 3 * call[2]
+             else ("", call, scan_cloud(call[1], i, "cuda")[None].contiguous())
              for i, call in enumerate(DENOISE_FPS_CALLS)]
+    cases.append(("random order", ("fps", 150000, 50000, False),
+                  scan_cloud(150000, len(cases), "cuda")[None].contiguous()))
     cases.append(("ties", ("fps", 60000, 6000, False), tie_clouds(1, 60000, gen)))
     for kind, call, cloud in cases:
         if fps_cuda.variant(call[1]) != 6 and call[1] > 16384:
             raise AssertionError(f"FPS at N={call[1]}: variant {fps_cuda.variant(call[1])}")
+        masks = fps_masks(cloud, gen) if call[3] else (None, None)
         err, ms, plain_ms = _check_fps(call, cloud, gen, reps=3 if call[2] > 5000 else 10,
-                                       plain_reps=1)
+                                       plain_reps=1, masks=masks)
         nbytes, ops = bound_parts(call, 1)
-        rows.append({"call": list(call), "batch": 1, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes, "ops": ops})
+        if kind != "random order":    # the path's layouts (and the ties') give the rows
+            rows.append({"call": list(call), "batch": 1, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes, "ops": ops})
+        skip = ""
+        if call[1] > fps_cuda.MAX_BLOCK_N:
+            idx, skipped, total = fps_cuda.cluster_skip_stats(cloud, call[2], *masks)
+            if not torch.equal(idx, fps_cuda.fps_idx(cloud, call[2], *masks)):
+                raise AssertionError(f"FPS {call} {kind}: the counting launch's indices differ")
+            p, w, regs = fps_cuda.cluster_shape(call[1])
+            skip = (f", P={p} in {w} warps a block, x y z in "
+                    f"{'registers' if regs else 'shared memory'}, {skipped} of {total} "
+                    f"warp-rounds skipped ({skipped / max(total, 1):.4f})")
         print(f"[denoise kernel{' ' + kind if kind else ''}] {call}: identical to plain, "
-              f"variant {fps_cuda.variant(call[1])}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"{ms / max(call[2] - 1, 1) * 1e3:.2f} us a round, bound "
+              f"variant {fps_cuda.variant(call[1])}{skip}, kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, {ms / max(call[2] - 1, 1) * 1e3:.3f} us a round, bound "
               f"{bound_ms(nbytes, ops):.4f} ms (B=1; {card})", flush=True)
     for i, (bsz, s, n, k) in enumerate(DENOISE_KNN_CALLS):
         for kind in ("", "ties"):
@@ -3144,6 +3212,13 @@ def phase_denoise_kernels(card):
     print(f"[kernel variants] FPS variants run in phases 2 and 41: {variants}", flush=True)
     if variants != list(range(fps_cuda.num_variants())):
         raise AssertionError(f"FPS variants run {variants}, of {fps_cuda.num_variants()}")
+    # variant 6's three instances (csrc/fps.cu kClusterShapes; the CPU tests
+    # hold the count): (points a thread, x y z in registers)
+    instances = sorted({fps_cuda.cluster_shape(n)[::2] for n in FPS_N_RUN
+                        if n > fps_cuda.MAX_BLOCK_N})
+    print(f"[kernel variants] FPS variant 6 instances run: {instances}", flush=True)
+    if len(instances) != 3:
+        raise AssertionError(f"FPS variant 6 instances run {instances}, of 3")
     return rows
 
 
@@ -3557,7 +3632,8 @@ def main() -> int:
           f"three over one PoinTr and one AdaPoinTr train step (B={B_COMP}), one legacy "
           f"pretask train step (B={B_PRETASK}) and the bf16 (if_half) cls, pretask and "
           f"pretrain train steps; fps and knn_select over one patch_based_denoise of 50000 "
-          f"points (B=1; library_ms: torch.cdist + topk); all three over rank 0's ZeRO-3 "
+          f"points (B=1); knn's and knn_select's library_ms: torch.cdist + topk; all three "
+          f"over rank 0's ZeRO-3 "
           f"pretrain step (B={B_PRETRAIN // N_RANKS} a rank) and fps and knn over rank 0's "
           f"dp1 x tp2 cls PEFT step (B={B}), launched in those rank processes; launches "
           f"from those runs; {card}")

@@ -27,12 +27,21 @@ change, made here by text substitution and built with the port's own
                     butterfly (committed: ``redux.sync``);
   chamfer probes    no-column-index, no-column, no-row-index: a part of the
                     work left out, to show its cost (outputs not checked);
-  fps-cluster P32 W16
-                    FPS variant 6 (N > 16384, a cluster of 16 blocks a
-                    cloud) with 32 points a thread in at most 16 warps
-                    (committed: 16 in at most 32), at the patch denoiser's
-                    shapes at batch 1, timed by CUDA events in turns,
-                    indices equal. Not part of the default set.
+  fps-cluster       FPS variant 6 (N > 16384, a cluster of 16 blocks a
+                    cloud) at the patch denoiser's shapes at batch 1 (and
+                    150000 -> 50000 in random order), timed by CUDA events
+                    in turns, indices equal: each part of its design turned
+                    off (``pull exchange``: the earlier design's cluster
+                    barrier and remote loads a round; ``shared-memory
+                    xyz``: the coordinates read from shared memory in every
+                    instance; ``no skipping``), other points a thread and
+                    warps a
+                    block (``P4 W16`` for N <= 32768, ``P24 W13`` and ``P32
+                    W12`` past 65536), the ``exchange only`` probe (every
+                    warp skips every round: the round's floor; indices not
+                    checked) and, with ``--parent``, the parent's variant 6.
+                    Prints the committed kernel's share of warp-rounds
+                    skipped. Not part of the default set.
 
 At the robust path's shapes (batch 120, the synthetic clouds of
 ``chip_smoke.py``; Chamfer at the pretask shapes, batch 64) every
@@ -45,9 +54,10 @@ prints the committed kernels' device time at every shape of
 wrapper's host cost is the longer.
 
 ``--parent DIR`` names an unpacked checkout of an earlier commit (for
-example ``git archive <commit> | tar -x -C build/parent``): its kNN kernel
+example ``git archive <commit> | tar -x -C archive/parent``): its kNN kernel
 is timed against the committed one in the same turns at every kNN shape
-above (the k <= 32 instance), outputs equal; its Chamfer kernel and wrapper
+above (the k <= 32 instance), outputs equal; with ``fps-cluster``, its FPS
+kernel's variant 6 against the committed one; its Chamfer kernel and wrapper
 are timed against the committed ones in the same turns, through both
 wrappers by CUDA events too, and swapped into the pretask eval and train
 steps to compare their device-busy time.
@@ -220,26 +230,106 @@ def fps_variants(clouds, gen, card):
                   f"(B={B}; {card})", flush=True)
 
 
-FPS_CLUSTER_SHAPES = ((16385, 512), (30000, 10000), (50000, 150), (150000, 50000),
-                      (262144, 1024))
-FPS_CLUSTER_P32 = (("""constexpr int kClusterP = 16; """, """constexpr int kClusterP = 32; """),
-                   ("""constexpr int kClusterWarps = 32; """,
-                    """constexpr int kClusterWarps = 16; """))
+# (N, S, layout): the patch denoiser's calls at batch 1 (utils/denoise.py;
+# the re-sampling 3N -> N on the patch layout it gets, the seed FPS on the
+# noisy cloud), 150000 -> 50000 again in random order, 16385 and the limit
+FPS_CLUSTER_SHAPES = ((16385, 512, "random"), (30000, 10000, "patches"), (50000, 150, "random"),
+                      (150000, 50000, "patches"), (150000, 50000, "random"),
+                      (262144, 1024, "random"))
+# each of the design's three parts turned off, other instance shapes, and
+# the exchange-only probe (no point work: the round's floor)
+FPS_CLUSTER_PUSH = """      if (lane < kClusterBlocks) {
+        const int j = static_cast<int>(~lo) - base;
+        push_candidate(&cand[i & 1][rank], &bar[i & 1], lane,
+                       Candidate{lo, hi, sx[j], sy[j], sz[j]});
+      }
+    }
+    wait_round(&bar[i & 1], (i >> 1) & 1);
+    if (tid == 0) expect_round(&bar[i & 1]);  // its next phase: round i + 2
+    Candidate c{0u, 0u, 0.f, 0.f, 0.f};
+    if (lane < kClusterBlocks) c = cand[i & 1][lane];"""
+FPS_CLUSTER_PULL = """      if (lane == 0) {
+        const int j = static_cast<int>(~lo) - base;
+        cand[i & 1][0] = Candidate{lo, hi, sx[j], sy[j], sz[j]};
+      }
+    }
+    cluster.sync();
+    Candidate c{0u, 0u, 0.f, 0.f, 0.f};
+    if (lane < kClusterBlocks) c = *cluster.map_shared_rank(&cand[i & 1][0], lane);"""
+FPS_CLUSTER_SKIP = "    if ((__float_as_uint(lb) | 0x80000000u) < whi) {"
+FPS_CLUSTER_P8 = "{fps_cluster_kernel<8, 16, true>, 8, 16, true}"
+FPS_CLUSTER_P16 = "{fps_cluster_kernel<16, 20, true>, 16, 20, true}"
+FPS_CLUSTER_EXACT = {
+    "pull exchange": ((FPS_CLUSTER_PUSH, FPS_CLUSTER_PULL),),
+    "shared-memory xyz": ((FPS_CLUSTER_P8, FPS_CLUSTER_P8.replace("true", "false")),
+                          (FPS_CLUSTER_P16, FPS_CLUSTER_P16.replace("true", "false"))),
+    "no skipping": ((FPS_CLUSTER_SKIP, "    if (true) {"),),
+    "P4 W16": ((FPS_CLUSTER_P8, "{fps_cluster_kernel<4, 16, true>, 4, 16, true}"),),
+    "P24 W13": ((FPS_CLUSTER_P16, "{fps_cluster_kernel<24, 13, true>, 24, 13, true}"),),
+    "P32 W12": ((FPS_CLUSTER_P16, "{fps_cluster_kernel<32, 12, true>, 32, 12, true}"),),
+}
+FPS_CLUSTER_PROBES = {
+    "exchange only": ((FPS_CLUSTER_SKIP, "    if (false) {"),),
+}
 
 
-def fps_cluster_variants(card):
-    """FPS variant 6 against its alternatives at the denoise shapes (batch
-    1, random normal clouds), CUDA events in turns; indices equal."""
+def build_all(sources):
+    """``build`` of every (tag, source) at once, one ``nvcc`` each, in
+    parallel; prints each library's ptxas resource lines."""
+    from upp_torch.ops import cuda_build
+    out_dir = cuda_build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, source in sources.items():
+        src, lib = out_dir / f"{tag}.cu", out_dir / f"lib{tag}.so"
+        src.write_text(source)
+        procs[tag] = (lib, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for tag, (lib, proc) in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {tag} failed:\n{log}")
+        for line in cuda_build._ptxas_usage(log).split("; "):
+            if "fps_cluster_kernel" in line:
+                print(f"[ptxas] {tag}: {line}", flush=True)
+        libs[tag] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def fps_cluster_cloud(n, layout, seed):
+    """[1, n, 3] on the card: a noisy sphere cloud (``random``: the points in
+    random order), or ``patches``: the re-sampling input of
+    ``patch_based_denoise`` on a cloud of n / 3 points."""
+    from chip_smoke import patch_cloud, scan_cloud
+    if layout == "patches":
+        return patch_cloud(n // 3, seed, "cuda")
+    return scan_cloud(n, seed, "cuda")[None].contiguous()
+
+
+def fps_cluster_variants(card, parent_dir=None):
+    """FPS variant 6 against its alternatives (and the parent commit's, with
+    ``parent_dir``) at ``FPS_CLUSTER_SHAPES``, CUDA events in turns
+    (committed, alternative, alternative, committed); indices equal to the
+    committed kernel's, except the probe's. Prints ms and µs a round, and
+    the committed kernel's share of warp-rounds skipped."""
     from upp_torch.ops import fps_cuda
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    libs = {"P32 W16": build("fps_cluster_p32", substituted("fps", *FPS_CLUSTER_P32))}
-    fns = {name: lib.upp_fps for name, lib in libs.items()}
+    sources = {f"fps_cluster_{name.replace(' ', '_').replace('-', '_')}":
+               substituted("fps", *edits)
+               for name, edits in {**FPS_CLUSTER_EXACT, **FPS_CLUSTER_PROBES}.items()}
+    names = list(FPS_CLUSTER_EXACT) + list(FPS_CLUSTER_PROBES)
+    if parent_dir:
+        sources["fps_parent"] = (Path(parent_dir) / "upp_torch" / "csrc" / "fps.cu").read_text()
+        names.append("parent")
+    libs = list(build_all(sources).values())
+    fns = {name: lib.upp_fps for name, lib in zip(names, libs)}
     for fn in fns.values():
         fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
     committed = fps_cuda._lib().upp_fps
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    for n, s in FPS_CLUSTER_SHAPES:
-        xyz = torch.randn((1, n, 3), generator=gen, device="cuda")
+    for seed, (n, s, layout) in enumerate(FPS_CLUSTER_SHAPES):
+        xyz = fps_cluster_cloud(n, layout, seed)
         want = torch.empty((1, s), dtype=torch.int32, device="cuda")
         got = torch.empty_like(want)
         stream = torch.cuda.current_stream().cuda_stream
@@ -252,16 +342,22 @@ def fps_cluster_variants(card):
             return go
         base = run(committed, want)
         base()
+        _, skipped, total = fps_cuda.cluster_skip_stats(xyz, s)
+        print(f"[fps-cluster] {n}->{s} {layout}: instance {fps_cuda.cluster_shape(n)}, "
+              f"{skipped} of {total} warp-rounds skipped ({skipped / max(total, 1):.4f}) "
+              f"(B=1; {card})", flush=True)
         reps = max(1, min(20, 20000 // s))
         for name, fn in fns.items():
             alt = run(fn, got)
             alt()
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"fps-cluster {name} at {n}->{s}: indices differ")
+            exact = name not in FPS_CLUSTER_PROBES
+            if exact and not torch.equal(got, want):
+                raise AssertionError(f"fps-cluster {name} at {n}->{s} {layout}: indices differ")
             c, v = in_turns(base, alt, lambda f: events_ms(f, reps))
-            print(f"[fps-cluster variant] {n}->{s}: committed {c:.3f} ms, {name} {v:.3f} ms, "
-                  f"{c / (s - 1) * 1e3:.2f} / {v / (s - 1) * 1e3:.2f} us a round (B=1; {card})",
+            print(f"[fps-cluster variant] {n}->{s} {layout}: committed {c:.3f} ms, {name} "
+                  f"{v:.3f} ms, {c / (s - 1) * 1e3:.3f} / {v / (s - 1) * 1e3:.3f} us a round"
+                  f"{'' if exact else ' (probe: indices not checked)'} (B=1; {card})",
                   flush=True)
 
 
@@ -528,7 +624,7 @@ def main() -> int:
     if kernels == {"fps-cluster"}:
         print(f"[card] {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
               flush=True)
-        fps_cluster_variants(card_line())
+        fps_cluster_variants(card_line(), parent_dir)
         return 0
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)

@@ -82,7 +82,8 @@ def test_knn_ties_index_exact_vs_pallas(case):
 
 @pytest.mark.parametrize("source,constant,wrapper", [
     ("knn.cu", "kMaxK", knn_cuda.MAX_K), ("knn.cu", "kMaxN", knn_cuda.MAX_N),
-    ("fps.cu", "kMaxN", fps_cuda.MAX_N), ("chamfer.cu", "kMaxB", chamfer_cuda.MAX_B),
+    ("fps.cu", "kMaxN", fps_cuda.MAX_N), ("fps.cu", "kMaxBlockN", fps_cuda.MAX_BLOCK_N),
+    ("chamfer.cu", "kMaxB", chamfer_cuda.MAX_B),
     ("chamfer.cu", "kMaxPoints", chamfer_cuda.MAX_POINTS),
     ("chamfer.cu", "kMaxSplits", chamfer_cuda.MAX_SPLITS),
     ("chamfer.cu", "kTileR", chamfer_cuda.TILE_R)])
