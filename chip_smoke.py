@@ -234,9 +234,15 @@ Phases, each fatal on failure:
      whose indices must equal ``fps_idx``'s); the large-k kNN (``csrc/knn_select.cu``) index-identical
      with bit-equal distances and ``knn_points``' gather equal at (1, 150,
      50000, k=1000), (1, 30, 10000, 1000), (4, 64, 16385, 65), (2, 8, 2048,
-     1024) and (1, 4, 100000, 500) (distances in global scratch), on noisy
-     sphere clouds and tie clouds; kernel, plain and ``torch.cdist`` +
-     ``topk`` ms; every FPS variant run over phases 2 and 41;
+     1024), (1, 4, 100000, 500) and its limits (1, 4, 2^20, 1024), on noisy
+     sphere clouds, tie clouds and coarse tie clouds (the 27-point grid),
+     each with the blocks a query and threads it launched with and, from
+     a counting launch, the boundary bin's keys after pass 1 against the
+     kernel's candidates and the queries that took the overflow path (every
+     query of a coarse tie cloud at the denoise shapes, 100000 and 2^20
+     must); kernel ms by CUDA events and µs by ``torch.profiler``, plain
+     and ``torch.cdist`` + ``topk`` ms; every FPS variant run over phases 2
+     and 41;
  42. ``utils/denoise.patch_based_denoise`` with an affine stand-in for the
      denoiser network at 50000 and 10000 points: launch counts (FPS 2,
      large-k kNN 1), ms a cloud and of each step, the 10000-point result
@@ -307,7 +313,8 @@ and pretrain train steps; each entry names its ``path``) and the card's
 name and power limit; the ``kernels`` line also has fps and knn_select
 entries for one ``patch_based_denoise`` of 50000 points (phase 42's
 launches, phase 41's times of the path's layouts; knn's and knn_select's
-``library_ms`` is ``torch.cdist`` + ``topk``); fps, knn and chamfer entries for rank 0 of
+``library_ms`` is ``torch.cdist`` + ``topk``; knn_select's ``device_ms`` is
+phase 41's profiler time); fps, knn and chamfer entries for rank 0 of
 phase 46's ZeRO-3 pretrain step (64 clouds a rank; its Chamfer over 2432
 clouds of 32) and fps and knn for rank 0 of phase 47's dp1 x tp2 cls PEFT
 step (120 clouds), launches counted in those rank processes; the last line
@@ -773,6 +780,34 @@ def _check_chamfer(call, clouds, gen):
     return err, ms, plain_ms
 
 
+def coarse_tie_clouds(bsz, n, gen):
+    """[bsz, n, 3] on the card: points drawn from the 27 points of the grid
+    {-1, 0, 1}^3, so thousands share each squared distance from a query at
+    N >= 10000 (csrc/knn_select.cu's overflow path)."""
+    return torch.randint(-1, 2, (bsz, n, 3), generator=gen, device=gen.device).float()
+
+
+def kernel_device_us(fn, kernel, reps=20, tries=3):
+    """Device µs a launch of the kernel named ``kernel``: the median of the
+    launches' durations that ``torch.profiler`` recorded over ``reps``
+    calls (it may drop some, or all of a window: then the window is
+    profiled again, up to ``tries`` times); raises if it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and kernel in e.name)
+        if spans:
+            return float(np.median(spans))
+    raise AssertionError(f"the profiler recorded no launch of {kernel} in {tries} windows")
+
+
 def tie_clouds(bsz, n, gen):
     """[bsz, n, 3] on the card: n // 2 points of the grid of multiples of 1/8
     in [-1, 1] and n - n // 2 repeats of them, in a random order."""
@@ -1090,6 +1125,8 @@ def kernel_entry(name, rows, table, launches, bsz, path):
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["call"][0] == name),
             "ms": sum(r["ms"] * c for r, c in mine),
+            **({"device_ms": sum(r["device_us"] * c for r, c in mine) / 1e3}
+               if mine and all("device_us" in r for r, _ in mine) else {}),
             "plain_ms": sum(r["plain_ms"] * c for r, c in mine),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3090,10 +3127,14 @@ DENOISE_FPS_CALLS = (("fps", 16385, 512, False), ("fps", 50000, 150, False),
                      ("fps", 10000, 30, False), ("fps", 20000, 256, True),
                      ("fps", 262144, 256, False))
 # the large-k kNN (csrc/knn_select.cu): the denoiser's patches at 50K and 10K
-# points, k = 65 past the small kernel at N = 16385, k = 1024, and an N whose
-# distances live in global scratch
+# points, k = 65 past the small kernel at N = 16385, k = 1024, an N past one
+# SM's shared memory, and the kernel's limits
 DENOISE_KNN_CALLS = ((1, 150, 50000, 1000), (1, 30, 10000, 1000), (4, 64, 16385, 65),
-                     (2, 8, 2048, 1024), (1, 4, 100000, 500))
+                     (2, 8, 2048, 1024), (1, 4, 100000, 500), (1, 4, 2 ** 20, 1024))
+# the shapes at which every query of a coarse tie cloud must take the
+# kernel's overflow path (more keys in the boundary bin than its candidates)
+DENOISE_KNN_OVERFLOW = ((1, 150, 50000, 1000), (1, 30, 10000, 1000), (1, 4, 100000, 500),
+                        (1, 4, 2 ** 20, 1024))
 DENOISE_50K = Counter({("fps", 50000, 150, False): 1, ("fps", 150000, 50000, False): 1,
                        ("knn_select", 150, 50000, 1000): 1})
 DENOISE_10K = Counter({("fps", 10000, 30, False): 1, ("fps", 30000, 10000, False): 1,
@@ -3141,7 +3182,9 @@ def phase_denoise_kernels(card):
     150000-point call also on the same cloud in random order, and tie-heavy
     grid clouds. FPS indices equal, each call's instance of variant 6, µs a
     round and the share of warp-rounds that skipped their points; kNN
-    indices equal, distances bit-equal, the gathered xyz equal. Kernel,
+    indices equal, distances bit-equal, the gathered xyz equal, also on
+    coarse tie clouds, whose queries must take the kernel's overflow path
+    at ``DENOISE_KNN_OVERFLOW``'s shapes. Kernel (events and profiler),
     plain and ``torch.cdist`` + ``topk`` ms. Then every FPS variant must
     have run over phases 2 and 41. Returns per-shape rows (of the path's
     layouts)."""
@@ -3180,13 +3223,19 @@ def phase_denoise_kernels(card):
               f"{plain_ms:.3f} ms, {ms / max(call[2] - 1, 1) * 1e3:.3f} us a round, bound "
               f"{bound_ms(nbytes, ops):.4f} ms (B=1; {card})", flush=True)
     for i, (bsz, s, n, k) in enumerate(DENOISE_KNN_CALLS):
-        for kind in ("", "ties"):
-            points = (tie_clouds(bsz, n, gen) if kind else
-                      torch.stack([scan_cloud(n, 100 + 10 * i + b, "cuda") for b in range(bsz)]))
+        clusters, threads = knn_cuda.select_plan(bsz * s, n)
+        for kind in ("", "ties", "coarse ties"):
+            if kind == "ties":
+                points = tie_clouds(bsz, n, gen)
+            elif kind:
+                points = coarse_tie_clouds(bsz, n, gen)
+            else:
+                points = torch.stack([scan_cloud(n, 100 + 10 * i + b, "cuda") for b in range(bsz)])
             query = points[:, :s].contiguous()
             kd, ki = knn_cuda.knn_select(query, points, k)
             pd, pi = knn_plain(query, points, k)
             gd, gi, gn = knn_points(query, points, k)
+            sd, si, stats = knn_cuda.select_stats(query, points, k)
             torch.cuda.synchronize()
             if not (torch.equal(ki.long(), pi) and torch.equal(kd, pd)):
                 raise AssertionError(f"knn_select {(bsz, s, n, k)} {kind}: "
@@ -3194,7 +3243,17 @@ def phase_denoise_kernels(card):
                                      f"{(kd - pd).abs().max().item()} apart")
             if not (torch.equal(gi, pi) and torch.equal(gn, index_points(points, pi))):
                 raise AssertionError(f"knn_points {(bsz, s, n, k)} {kind}: gather differs")
+            if not (torch.equal(si, ki) and torch.equal(sd, kd)):
+                raise AssertionError(f"knn_select {(bsz, s, n, k)} {kind}: the counting "
+                                     f"launch's outputs differ")
+            refined = int((stats[:, 1] > 0).sum())
+            if kind == "coarse ties" and (bsz, s, n, k) in DENOISE_KNN_OVERFLOW and \
+                    refined != bsz * s:
+                raise AssertionError(f"knn_select {(bsz, s, n, k)} coarse ties: {refined} of "
+                                     f"{bsz * s} queries took the overflow path")
             ms = cuda_ms(lambda: knn_cuda.knn_select(query, points, k), reps=20)
+            us = kernel_device_us(lambda: knn_cuda.knn_select(query, points, k),
+                                  "knn_select_kernel")
             plain_ms = cuda_ms(lambda: knn_plain(query, points, k), reps=3)
             lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(query, points).square(), k,
                                                 largest=False), reps=10)
@@ -3202,12 +3261,16 @@ def phase_denoise_kernels(card):
             nbytes, ops = bound_parts(call, bsz)
             if not kind:
                 rows.append({"call": ["knn_select", s, n, k], "batch": bsz, "max_abs_err": 0.0,
-                             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "bytes": nbytes, "ops": ops})
+                             "ms": ms, "device_us": us, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bytes": nbytes, "ops": ops})
             print(f"[denoise kernel{' ' + kind if kind else ''}] knn_select (B={bsz}, S={s}, "
                   f"N={n}, k={k}): identical to plain, distances bit-equal, gather equal, "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cdist + topk {lib_ms:.3f} ms, "
-                  f"bound {bound_ms(nbytes, ops):.4f} ms ({card})", flush=True)
+                  f"C={clusters} blocks of {threads} threads a query; boundary bin after pass 1 "
+                  f"up to {int(stats[:, 0].max())} keys against {knn_cuda.SELECT_CANDIDATES} "
+                  f"candidates, {refined} of {bsz * s} queries refined (up to "
+                  f"{int(stats[:, 1].max())} passes); kernel {ms:.4f} ms (events), {us:.1f} us "
+                  f"(device), plain {plain_ms:.3f} ms, cdist + topk {lib_ms:.3f} ms, bound "
+                  f"{bound_ms(nbytes, ops):.4f} ms ({card})", flush=True)
     variants = sorted({fps_cuda.variant(n) for n in FPS_N_RUN})
     print(f"[kernel variants] FPS variants run in phases 2 and 41: {variants}", flush=True)
     if variants != list(range(fps_cuda.num_variants())):

@@ -1,7 +1,8 @@
 """Time design alternatives of the port's FPS, kNN and Chamfer kernels on a
 CUDA card.
 
-    python3 scripts/torch_kernel_variants.py [fps] [knn] [chamfer] [fps-cluster] [--parent DIR]
+    python3 scripts/torch_kernel_variants.py [fps] [knn] [chamfer] [fps-cluster] [knn-select]
+        [--parent DIR]
 
 Each alternative is the committed source (``upp_torch/csrc/*.cu``) with one
 change, made here by text substitution and built with the port's own
@@ -42,6 +43,21 @@ change, made here by text substitution and built with the port's own
                     checked) and, with ``--parent``, the parent's variant 6.
                     Prints the committed kernel's share of warp-rounds
                     skipped. Not part of the default set.
+  knn-select        the large-k kNN (``csrc/knn_select.cu``) at
+                    ``chip_smoke.DENOISE_KNN_CALLS`` on noisy-sphere clouds,
+                    timed in turns by the median launch in
+                    ``torch.profiler``, outputs equal: each part of its
+                    design turned off (``C = 1``: one block a query, where
+                    a share fits; the ``__match_any_sync`` histogram; the
+                    register and the barrier-a-stage bitonic sorts in place
+                    of the merge sort; the radix select over the whole
+                    share in place of the candidates), other plans (threads,
+                    ``C`` doubled and halved, the smallest share, the
+                    register cap), the probes that end the kernel after
+                    each phase (outputs not checked; ``after the merged
+                    histogram`` is the floor: the distance pass and one
+                    merged histogram) and, with ``--parent``, the parent's
+                    kernel. Not part of the default set.
 
 At the robust path's shapes (batch 120, the synthetic clouds of
 ``chip_smoke.py``; Chamfer at the pretask shapes, batch 64) every
@@ -136,7 +152,14 @@ def build(tag, source):
     return ctypes.CDLL(str(lib))
 
 
-def device_us(fn, reps=20):
+def device_us(fn, reps=20, kernel=None):
+    """Device µs a call: the device time of its kernels (every one named
+    ``*_kernel*``) over ``reps`` calls. With ``kernel``, the median µs of
+    a launch of the kernel of that name, by ``chip_smoke.kernel_device_us``
+    (robust to the launches the profiler drops)."""
+    if kernel is not None:
+        from chip_smoke import kernel_device_us
+        return kernel_device_us(fn, kernel, reps)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -186,6 +209,21 @@ def committed_device_times(clouds, gen, card):
             continue
         print(f"[device] {call}: {device_us(fn):.1f} us per launch (B={bsz}; {card})",
               flush=True)
+    select_device_times(card)
+
+
+def select_device_times(card):
+    """Device µs per launch of the large-k kNN through its wrapper at
+    ``chip_smoke.DENOISE_KNN_CALLS`` (noisy-sphere clouds), with its plan."""
+    from chip_smoke import DENOISE_KNN_CALLS, scan_cloud
+    from upp_torch.ops import knn_cuda
+    for i, (bsz, s, n, k) in enumerate(DENOISE_KNN_CALLS):
+        points = torch.stack([scan_cloud(n, 100 + 10 * i + b, "cuda") for b in range(bsz)])
+        query = points[:, :s].contiguous()
+        us = select_us(lambda: knn_cuda.knn_select(query, points, k))
+        print(f"[device] knn_select (B={bsz}, S={s}, N={n}, k={k}): {us:.1f} us per launch, "
+              f"plan (blocks a query, threads, digits kept) "
+              f"{knn_cuda.select_plan(bsz * s, n)} ({card})", flush=True)
 
 
 def fps_variants(clouds, gen, card):
@@ -273,9 +311,9 @@ FPS_CLUSTER_PROBES = {
 }
 
 
-def build_all(sources):
+def build_all(sources, kernel="fps_cluster_kernel"):
     """``build`` of every (tag, source) at once, one ``nvcc`` each, in
-    parallel; prints each library's ptxas resource lines."""
+    parallel; prints each library's ptxas resource lines of ``kernel``."""
     from upp_torch.ops import cuda_build
     out_dir = cuda_build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -292,7 +330,7 @@ def build_all(sources):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {tag} failed:\n{log}")
         for line in cuda_build._ptxas_usage(log).split("; "):
-            if "fps_cluster_kernel" in line:
+            if kernel in line:
                 print(f"[ptxas] {tag}: {line}", flush=True)
         libs[tag] = ctypes.CDLL(str(lib))
     return libs
@@ -359,6 +397,252 @@ def fps_cluster_variants(card, parent_dir=None):
                   f"{v:.3f} ms, {c / (s - 1) * 1e3:.3f} / {v / (s - 1) * 1e3:.3f} us a round"
                   f"{'' if exact else ' (probe: indices not checked)'} (B=1; {card})",
                   flush=True)
+
+
+# the large-k kNN (csrc/knn_select.cu): each part of its design turned off,
+# built by substitution; every one must give the committed kernel's outputs
+SELECT_SORT_CALL = "block_sort<kThreads>(keys, spare, n);"
+SELECT_SORT_DEF = "template <int kThreads>\n__device__ Key* block_sort("
+# the gathered keys sorted by a bitonic network in registers: strides < 32
+# by __shfl_xor_sync, strides >= the block's threads inside a thread, a
+# barrier at each stride between (15 at 1024 keys and 1024 threads)
+SELECT_REGISTER_BITONIC = r"""__device__ __forceinline__ Key keep(Key v, Key o, int i, int stride,
+                                     int width) {
+  const bool low = (i & stride) == 0;
+  const bool up = (i & width) == 0;
+  return (low == up) ? (o < v ? o : v) : (o > v ? o : v);
+}
+
+template <int kThreads>
+__device__ Key* register_bitonic(Key* keys, Key* spare, int n) {
+  constexpr int E = kGathered / kThreads;
+  const int tid = threadIdx.x;
+  int size = 32;
+  while (size < n) size <<= 1;
+  Key v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = e * kThreads + tid;
+    v[e] = i < n ? keys[i] : ~0ull;
+  }
+  int phase = 0;
+  for (int width = 2; width <= size; width <<= 1) {
+    for (int stride = width >> 1; stride > 0; stride >>= 1) {
+      if (stride >= kThreads) {
+        const int es = stride / kThreads;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+#pragma unroll
+          for (int f = e + 1; f < E; ++f) {
+            if ((e & es) == 0 && f == (e | es) && e * kThreads < size) {
+              const bool up = ((e * kThreads + tid) & width) == 0;
+              const Key a = v[e], c = v[f];
+              if ((a > c) == up) {
+                v[e] = c;
+                v[f] = a;
+              }
+            }
+          }
+        }
+      } else if (stride >= 32) {
+        Key* buf = (phase++ & 1) ? spare : keys;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (e * kThreads < size) buf[e * kThreads + tid] = v[e];
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int i = e * kThreads + tid;
+          if (e * kThreads < size) v[e] = keep(v[e], buf[i ^ stride], i, stride, width);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int i = e * kThreads + tid;
+          if (e * kThreads < size)
+            v[e] = keep(v[e], __shfl_xor_sync(kFull, v[e], stride), i, stride, width);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (e * kThreads < size) keys[e * kThreads + tid] = v[e];
+  __syncthreads();
+  return keys;
+}
+
+"""
+# the gathered keys sorted by a bitonic network in shared memory, a barrier
+# at each of its stages (55 at 1024 keys, 66 at 2048)
+SELECT_SHARED_BITONIC = r"""template <int kThreads>
+__device__ Key* shared_bitonic(Key* keys, Key* spare, int n) {
+  const int tid = threadIdx.x;
+  int size = 1;
+  while (size < n) size <<= 1;
+  for (int i = n + tid; i < size; i += kThreads) keys[i] = ~0ull;
+  for (int width = 2; width <= size; width <<= 1) {
+    for (int stride = width >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int i = tid; i < size; i += kThreads) {
+        const int partner = i ^ stride;
+        if (partner > i) {
+          const Key a = keys[i], c = keys[partner];
+          if ((a > c) == ((i & width) == 0)) {
+            keys[i] = c;
+            keys[partner] = a;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  return keys;
+}
+
+"""
+# the histogram's count warp-aggregated: one atomicAdd a run of equal digits
+SELECT_MATCH_ANY_COUNT = """  const unsigned peers = __match_any_sync(kFull, digit);
+  if (digit != kNoDigit && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(&hist[digit], static_cast<unsigned>(__popc(peers)));"""
+SELECT_EXACT = {
+    "C = 1": (("constexpr int kMaxCluster = 16;", "constexpr int kMaxCluster = 1;"),
+              ("static_assert(kMaxCluster * kMaxStoredShare >= kMaxN,",
+               "static_assert(kMaxCluster * kMaxStoredShare >= kMaxN || kMaxCluster == 1,")),
+    "match_any histogram": (("  if (digit != kNoDigit) atomicAdd(&hist[digit], 1u);",
+                             SELECT_MATCH_ANY_COUNT),),
+    "register bitonic sort": (
+        (SELECT_SORT_DEF, SELECT_REGISTER_BITONIC + SELECT_SORT_DEF),
+        (SELECT_SORT_CALL,
+         "register_bitonic<kThreads>(keys, spare, n);")),
+    "barrier-a-stage sort": (
+        (SELECT_SORT_DEF, SELECT_SHARED_BITONIC + SELECT_SORT_DEF),
+        (SELECT_SORT_CALL, "shared_bitonic<kThreads>(keys, spare, n);")),
+    "whole-share select": (("while (s.count > static_cast<unsigned>(kCandidates)) {",
+                            "while (s.shift > 0) {"),),
+    "256 threads": (("return {c, few ? 1024 : 256, share};", "return {c, 256, share};"),),
+    "1024 threads": (("return {c, few ? 1024 : 256, share};", "return {c, 1024, share};"),),
+    "C x2": (("  const long long room = few ? kSMs : kTargetBlocks;",
+              "  const long long room = 2 * (few ? kSMs : kTargetBlocks);"),),
+    "C /2": (("  const long long room = few ? kSMs : kTargetBlocks;",
+              "  const long long room = (few ? kSMs : kTargetBlocks) / 2;"),),
+    "min share 2048": (("constexpr int kMinShare = 512;", "constexpr int kMinShare = 2048;"),),
+    "no register cap": (("__launch_bounds__(kThreads, kThreads == 256 ? 5 : 1)",
+                         "__launch_bounds__(kThreads)"),),
+    "C /2, no register cap": (("  const long long room = few ? kSMs : kTargetBlocks;",
+                               "  const long long room = (few ? kSMs : kTargetBlocks) / 2;"),
+                              ("__launch_bounds__(kThreads, kThreads == 256 ? 5 : 1)",
+                               "__launch_bounds__(kThreads)")),
+}
+# probes: the kernel cut short after a phase (outputs not checked); "after
+# the merged histogram" is the round's floor, the distance pass and one
+# merged histogram
+# a probe's end: every block leaves after a cluster barrier, so none leaves
+# while a peer may still read its shared memory
+SELECT_PROBE_END = "\n  if (K > 0) {\n    cluster.sync();\n    return;\n  }"
+SELECT_PROBES = {
+    "after the launch barrier": (
+        ("cluster.sync();  // every block zeroed and running before any remote access",
+         "cluster.sync();  // every block zeroed and running before any remote access\n"
+         "  if (K > 0) return;"),),
+    "after pass 1": (
+        ("  __syncthreads();\n  if (rank != 0) push_bins(cluster, u.hist, kTopBins);",
+         "  __syncthreads();\n  if (K > 0) return;\n"
+         "  if (rank != 0) push_bins(cluster, u.hist, kTopBins);"),),
+    "after the merged histogram": (
+        ("cluster.sync();  // the cluster's first-digit histogram is in rank 0's",
+         "cluster.sync();  // the cluster's first-digit histogram is in rank 0's\n"
+         "  if (K > 0) return;"),),
+    "after the boundary": (
+        ("Select s = *cluster.map_shared_rank(&sel, 0);",
+         "Select s = *cluster.map_shared_rank(&sel, 0);" + SELECT_PROBE_END),),
+    "after pass 2": (
+        ("  const Key* run = block_sort<kThreads>(keys, spare, n);",
+         SELECT_PROBE_END + "\n  const Key* run = block_sort<kThreads>(keys, spare, n);"),),
+    "after the sorts": (
+        ("  cluster.sync();  // every block's keys are sorted",
+         "  cluster.sync();  // every block's keys are sorted\n  if (K > 0) return;"),),
+    "after the copies": (
+        ("  cluster_arrive();  // this block reads no peer's shared memory any more",
+         "  cluster_arrive();  // this block reads no peer's shared memory any more\n"
+         "  if (K > 0) {\n    cluster_wait();\n    return;\n  }"),),
+}
+
+
+def select_us(fn):
+    return device_us(fn, kernel="knn_select_kernel")
+
+
+def select_variants(card, parent_dir=None):
+    """The large-k kNN against its alternatives and probes (and the parent
+    commit's kernel, with ``parent_dir``) at ``chip_smoke.DENOISE_KNN_CALLS``
+    on noisy-sphere clouds, device µs in turns (committed, alternative,
+    alternative, committed); outputs equal to the committed kernel's, except
+    the probes'."""
+    from chip_smoke import DENOISE_KNN_CALLS, scan_cloud
+    from upp_torch.ops import knn_cuda
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    sources = {f"select_{i}": substituted("knn_select", *edits)
+               for i, edits in enumerate({**SELECT_EXACT, **SELECT_PROBES}.values())}
+    names = list(SELECT_EXACT) + list(SELECT_PROBES)
+    if parent_dir:
+        sources["select_parent"] = (Path(parent_dir) / "upp_torch" / "csrc"
+                                    / "knn_select.cu").read_text()
+    libs = build_all(sources, "knn_select_kernel")
+    fns = {name: libs[f"select_{i}"].upp_knn_select for i, name in enumerate(names)}
+    for fn in fns.values():
+        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+    parent = None
+    if parent_dir:
+        # an entry point that exports upp_knn_select_smem_max_n takes a global
+        # scratch row a query past that N before the outputs; the others a
+        # null stats row after them
+        parent = libs["select_parent"]
+        parent_scratch = hasattr(parent, "upp_knn_select_smem_max_n")
+        parent.upp_knn_select.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+    committed = knn_cuda._select_lib().upp_knn_select
+    for i, (bsz, s, n, k) in enumerate(DENOISE_KNN_CALLS):
+        points = torch.stack([scan_cloud(n, 100 + 10 * i + b, "cuda") for b in range(bsz)])
+        query = points[:, :s].contiguous()
+        outs = [(torch.empty((bsz, s, k), device="cuda"),
+                 torch.empty((bsz, s, k), dtype=torch.int32, device="cuda")) for _ in range(2)]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(fn, out, before=(), after=(None,)):
+            def go():
+                err = fn(query.data_ptr(), points.data_ptr(), bsz, s, n, k, *before,
+                         out[0].data_ptr(), out[1].data_ptr(), *after, stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed ({err})")
+            return go
+        base = run(committed, outs[0])
+        base()
+        cases = [(name, run(fn, outs[1]), name in SELECT_EXACT) for name, fn in fns.items()]
+        if parent is not None:
+            ends = {}
+            if parent_scratch:
+                big = n > parent.upp_knn_select_smem_max_n()
+                scratch = torch.empty((bsz * s, n) if big else (1,), dtype=torch.int32,
+                                      device="cuda")
+                ends = {"before": (scratch.data_ptr() if big else None,), "after": ()}
+            cases.append(("parent", run(parent.upp_knn_select, outs[1], **ends), True))
+        plan = knn_cuda.select_plan(bsz * s, n)
+        for name, fn, exact in cases:
+            if name == "C = 1" and n > knn_cuda.SELECT_MAX_STORED_SHARE:
+                print(f"[select variant] (B={bsz}, S={s}, N={n}, k={k}): C = 1 not run, one "
+                      f"block's share past {knn_cuda.SELECT_MAX_STORED_SHARE} points", flush=True)
+                continue
+            for t in outs[1]:
+                t.fill_(-1)
+            fn()
+            torch.cuda.synchronize()
+            if exact and not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"knn_select {name} at {(bsz, s, n, k)}: outputs differ")
+            c, v = in_turns(base, fn, select_us)
+            print(f"[select variant] (B={bsz}, S={s}, N={n}, k={k}) plan {plan}: committed "
+                  f"{c:.1f} us, {name} {v:.1f} us"
+                  f"{'' if exact else ' (probe: outputs not checked)'} ({card})", flush=True)
 
 
 def knn_variants(clouds, card, parent_dir=None):
@@ -625,6 +909,13 @@ def main() -> int:
         print(f"[card] {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
               flush=True)
         fps_cluster_variants(card_line(), parent_dir)
+        return 0
+    if kernels == {"knn-select"}:
+        card = card_line()
+        print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        with torch.inference_mode():
+            select_device_times(card)
+            select_variants(card, parent_dir)
         return 0
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)

@@ -73,7 +73,8 @@ def test_wrappers_raise_past_their_limits(call, match):
 
 @pytest.mark.parametrize("constant,wrapper", [
     ("kMaxK", knn_cuda.SELECT_MAX_K), ("kMaxN", knn_cuda.SELECT_MAX_N),
-    ("kSmemMaxN", knn_cuda.SELECT_SMEM_MAX_N)])
+    ("kCandidates", knn_cuda.SELECT_CANDIDATES), ("kGathered", knn_cuda.SELECT_GATHERED),
+    ("kMaxStoredShare", knn_cuda.SELECT_MAX_STORED_SHARE)])
 def test_select_limits_equal_the_cuda_source(constant, wrapper):
     found = re.findall(rf"constexpr int {constant} = (\d+);",
                        (CSRC / "knn_select.cu").read_text())

@@ -10,8 +10,10 @@ first use (see ``cuda_build``), never at import.
 staged in shared memory, keeping one (distance, index) key a lane for k <= 32
 and two for 32 < k <= 64 (two template instances of one kernel); the library
 picks by k. ``knn_select``'s kernel serves the rest up to k = 1024 and
-N = 2^20 at few queries: a block per query radix-selects the k-th distance
-and sorts the k taken keys.
+N = 2^20 at few queries: a thread-block cluster per query splits the cloud
+among its blocks, finds the boundary of the k smallest keys from a merged
+histogram of a wide first digit, and each block sorts its keys at or below
+the boundary and places them among its peers' by binary search.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ from . import cuda_build
 
 MAX_K = 64       # csrc/knn.cu kMaxK: two kept keys per lane of the query's warp
 MAX_N = 16384    # csrc/knn.cu kMaxN: the cloud is staged in shared memory
-SELECT_MAX_K = 1024      # csrc/knn_select.cu kMaxK: the taken keys sorted in shared memory
-SELECT_MAX_N = 1048576   # csrc/knn_select.cu kMaxN
-SELECT_SMEM_MAX_N = 53248  # csrc/knn_select.cu kSmemMaxN: beyond, distances in scratch
+SELECT_MAX_K = 1024      # csrc/knn_select.cu kMaxK
+SELECT_MAX_N = 1048576   # csrc/knn_select.cu kMaxN: an index fits the key's low 20 bits
+SELECT_CANDIDATES = 1024  # csrc/knn_select.cu kCandidates: past it, more passes over the cloud
+SELECT_GATHERED = 2048    # csrc/knn_select.cu kGathered: a block's keys in pass 2, at most
+SELECT_MAX_STORED_SHARE = 65536  # csrc/knn_select.cu kMaxStoredShare: points a block
 
 
 @functools.cache
@@ -46,10 +50,11 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _select_lib() -> ctypes.CDLL:
     lib = cuda_build.load("knn_select")
-    lib.upp_knn_select.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.upp_knn_select.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.upp_knn_select.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+    lib.upp_knn_select.restype = i32
+    lib.upp_knn_select_plan.argtypes = [i32, i32, ptr]
+    lib.upp_knn_select_plan.restype = None
     lib.upp_knn_select_error_string.argtypes = [ctypes.c_int]
     lib.upp_knn_select_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,25 +118,51 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sq_dists [B,S,k] f32 ascending, idx [B,S,k] i32) by the large-k
     kernel, for float32 contiguous CUDA ``query`` [B,S,3] and ``points``
-    [B,N,3], k <= 1024, N <= 2^20. One block a query: meant for few
-    queries (``knn`` serves the many-query call sites up to k = 64)."""
+    [B,N,3], k <= 1024, N <= 2^20. A cluster of blocks a query: meant for
+    few queries (``knn`` serves the many-query call sites up to k = 64)."""
+    d, idx, _ = _select(query, points, k, stats=False)
+    knn_select.launches += 1
+    return d, idx
+
+
+knn_select.launches = 0
+
+
+def select_stats(query: torch.Tensor, points: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``knn_select`` with, for each query, the count of keys in the boundary
+    bin after the first pass and the number of refining passes the kernel
+    made (more than ``SELECT_CANDIDATES`` in that bin): (d, idx, stats
+    [B*S, 2] int64). A measurement entry: the port's paths call
+    ``knn_select``; a launch here counts in ``knn_select.launches`` all the
+    same."""
+    out = _select(query, points, k, stats=True)
+    knn_select.launches += 1
+    return out
+
+
+def select_plan(rows: int, n: int) -> Tuple[int, int]:
+    """The kernel's launch plan for ``rows`` = B*S queries over clouds of
+    ``n`` points: (blocks a query, threads a block). Asks the built library,
+    which decides it."""
+    out = (ctypes.c_int * 2)()
+    _select_lib().upp_knn_select_plan(rows, n, out)
+    return out[0], out[1]
+
+
+def _select(query, points, k, stats):
     _check_inputs("knn_select", query, points, k, SELECT_MAX_K, SELECT_MAX_N)
     B, S, _ = query.shape
     N = points.shape[1]
     dev = query.device
     d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=dev)
-    scratch = (torch.empty((B * S, N), dtype=torch.int32, device=dev)
-               if N > SELECT_SMEM_MAX_N else None)
-    err = cuda_build.launch(_select_lib().upp_knn_select, dev, query.data_ptr(),
-                            points.data_ptr(), B, S, N, k,
-                            None if scratch is None else scratch.data_ptr(), d.data_ptr(),
-                            idx.data_ptr())
+    lib = _select_lib()
+    st = torch.zeros((B * S, 2), dtype=torch.int32, device=dev) if stats else None
+    err = cuda_build.launch(lib.upp_knn_select, dev, query.data_ptr(), points.data_ptr(),
+                            B, S, N, k, d.data_ptr(), idx.data_ptr(),
+                            None if st is None else st.data_ptr())
     if err != 0:
-        msg = _select_lib().upp_knn_select_error_string(err).decode()
+        msg = lib.upp_knn_select_error_string(err).decode()
         raise RuntimeError(f"knn_select kernel launch failed: {msg} ({err})")
-    knn_select.launches += 1
-    return d, idx
-
-
-knn_select.launches = 0
+    return d, idx, None if st is None else st.long()
