@@ -582,10 +582,9 @@ def _wrappers():
 
 class Recorder:
     """Counts the kernel calls of a path run by shape, around the wrappers.
-    The wrappers' own launch counters are what the run reports: a wrapper
-    increments its counter through its module-level name, which points at
-    the recording stand-in here, so the stand-in carries the counter and
-    hands it back on exit."""
+    The launches the run reports are the recorder's ``launches.*``
+    counters (``upp_torch.utils.profiling``), which the wrappers keep
+    whatever stands in for them."""
 
     def __init__(self):
         self.wrappers = _wrappers()
@@ -600,24 +599,24 @@ class Recorder:
                 self.calls[_key(*a, **kw)] += 1
                 return _f0(*a, **kw)
 
-            rec.launches = f0.launches
             setattr(mod, attr, rec)
             self.orig.append(f0)
         return self
 
     def __exit__(self, *exc):
         for (_, mod, attr, _), f0 in zip(self.wrappers, self.orig):
-            f0.launches = getattr(mod, attr).launches
             setattr(mod, attr, f0)
 
 
 def reset_counts():
-    for _, mod, attr, _ in _wrappers():
-        getattr(mod, attr).launches = 0
+    from upp_torch.utils import profiling
+    profiling.reset()
 
 
 def read_counts():
-    return {name: getattr(mod, attr).launches for name, mod, attr, _ in _wrappers()}
+    from upp_torch.utils import profiling
+    counts = profiling.counts()
+    return {name: counts.get("launches." + name, 0) for name, _, _, _ in _wrappers()}
 
 
 def bound_parts(call, bsz):

@@ -1,6 +1,7 @@
 """The port's profiling tools (``upp_torch/utils/profiling.py``) on the CPU:
 ``cost_analysis`` against the JAX package's (XLA's FLOPs and bytes of a
-lone matmul), ``annotate`` ranges nesting in a ``torch.profiler`` trace,
+lone matmul), ``annotate`` spans nesting in a ``torch.profiler`` trace
+and in the recorder (``test_torch_port_tracing.py`` tests the recorder),
 ``maybe_trace`` writing one, and ``profile_train_step`` giving the rows of
 the JAX package's table on a tiny config (the JAX side with its jitted
 step replaced by one that does nothing: only its row names are compared;
@@ -40,6 +41,9 @@ def test_cost_analysis_counts_no_bytes_for_views():
 
 
 def test_annotate_ranges_nest_in_a_profiler_trace():
+    """While a profiler records, spans stand in its trace as nested ranges
+    and the recorder holds them as one unit; with none, they are neither."""
+    profiling.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with profiling.annotate("outer"):
             with profiling.annotate("inner"):
@@ -49,15 +53,25 @@ def test_annotate_ranges_nest_in_a_profiler_trace():
     assert inner.cpu_parent is not None and inner.cpu_parent.name == "outer"
     assert outer.time_range.start <= inner.time_range.start
     assert inner.time_range.end <= outer.time_range.end
+    (unit,) = profiling.units()
+    assert unit["name"] == "outer" and [(s["name"], s["parent"]) for s in unit["spans"]] == [
+        ("inner", "outer")]
+    with profiling.annotate("unrecorded"):
+        pass
+    assert len(profiling.units()) == 1
+    profiling.reset()
 
 
 def test_maybe_trace_writes_a_trace_with_the_ranges(tmp_path, monkeypatch):
     monkeypatch.delenv("UPP_PROFILE_DIR", raising=False)
     with profiling.maybe_trace() as prof:
         assert prof is None
+    profiling.reset()
     with profiling.maybe_trace(str(tmp_path / "a")):
         with profiling.annotate("phase"):
             torch.ones(8) + 1
+    assert [u["name"] for u in profiling.units()] == ["phase"]
+    profiling.reset()
     monkeypatch.setenv("UPP_PROFILE_DIR", str(tmp_path / "b"))
     with profiling.maybe_trace():
         torch.ones(8) + 1

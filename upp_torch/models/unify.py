@@ -27,6 +27,7 @@ from ..ops.group import group_points
 from ..ops.knn import knn_points
 from ..ops.propagate import propagate
 from ..utils.config import to_config
+from ..utils.profiling import annotate
 from .blocks import PrompterConfig
 from .build import MODELS
 from .layers import (BN_EPS, BatchNorm1d, Dropout, Encoder, PointConv, PosEmbedMLP,
@@ -193,27 +194,29 @@ class PointMAEUnify(_UnifyCore):
         """Logits [B, cls_dim] of clouds ``pts`` [B, P, 3]; ``denoise`` runs
         the rectify pass, ``completion_prompt`` the completion pass."""
         if denoise:
-            pts = self.denoise_pts(pts, point_num)
+            with annotate("rectify"):
+                pts = self.denoise_pts(pts, point_num)
         if completion_prompt:
-            pts = self.complete_and_resample(pts, point_num)[0]
+            with annotate("completion"):
+                pts = self.complete_and_resample(pts, point_num)[0]
+        with annotate("downstream"):
+            g = group_points(pts, self.num_group, self.group_size)
+            tokens = self.encoder(g.neighborhood)
+            B = tokens.shape[0]
+            pos = torch.cat([self.cls_pos.expand(B, -1, -1), self.pos_embed(g.center)], dim=1)
+            x = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
 
-        g = group_points(pts, self.num_group, self.group_size)
-        tokens = self.encoder(g.neighborhood)
-        B = tokens.shape[0]
-        pos = torch.cat([self.cls_pos.expand(B, -1, -1), self.pos_embed(g.center)], dim=1)
-        x = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
-
-        propagation = None
-        if self.prompt_propagation_after:
-            lvl2 = group_points(g.center, self.num_group // 2, 8)
-            propagation = {"center1": g.center, "center1_idx": lvl2.idx,
-                           "center2": lvl2.center, "center2_idx": lvl2.center_idx,
-                           **self.gather_mode}
-        x = self.blocks(x, pos, path="downstream", classification=True,
-                        propagation=propagation)
-        x = self.norm(x)
-        concat_f = torch.cat([x[:, 0], x[:, 1:].amax(1)], dim=-1)
-        return self.cls_head_finetune(concat_f)
+            propagation = None
+            if self.prompt_propagation_after:
+                lvl2 = group_points(g.center, self.num_group // 2, 8)
+                propagation = {"center1": g.center, "center1_idx": lvl2.idx,
+                               "center2": lvl2.center, "center2_idx": lvl2.center_idx,
+                               **self.gather_mode}
+            x = self.blocks(x, pos, path="downstream", classification=True,
+                            propagation=propagation)
+            x = self.norm(x)
+            concat_f = torch.cat([x[:, 0], x[:, 1:].amax(1)], dim=-1)
+            return self.cls_head_finetune(concat_f)
 
 
 @MODELS.register_module("Point_MAE_pretask_dev")
@@ -236,9 +239,11 @@ class PointMAEPretask(_UnifyCore):
     def forward(self, pts: torch.Tensor, *, point_num: int = 2048,
                 train_with_gaussian: bool = True):
         if not (train_with_gaussian and self.training):
-            return self.complete(pts)
+            with annotate("completion"):
+                return self.complete(pts)
         B, P, _ = pts.shape
-        pred_vector = self.rectify_vectors(pts)
+        with annotate("rectify"):
+            pred_vector = self.rectify_vectors(pts)
         noise, partial = pts[:, point_num:], pts[:, :point_num]
         # supervision: mean displacement to the K=4 nearest clean points
         # (Point_MAE_pretask_dev.py:680-689)
@@ -254,5 +259,6 @@ class PointMAEPretask(_UnifyCore):
         recall = ((order[:, :n_drop] >= point_num).float().sum(-1) / n_drop).mean()
         keep_idx = order[:, n_drop:]
         pts = torch.gather(pts, 1, keep_idx[..., None].expand(-1, -1, 3)).detach()
-        predict_center, rebuild = self.complete(pts)
+        with annotate("completion"):
+            predict_center, rebuild = self.complete(pts)
         return predict_center, rebuild, noise_loss, recall

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 MAX_B = 65535             # csrc/chamfer.cu kMaxB: the batch is the grid's z dimension
@@ -119,10 +120,7 @@ def nn_both(x: torch.Tensor, y: torch.Tensor,
     if err != 0:
         msg = _lib().upp_chamfer_error_string(err).decode()
         raise RuntimeError(f"chamfer kernel launch failed: {msg} ({err})")
-    nn_both.launches += plan.launches
+    profiling.count("launches.chamfer", plan.launches)
     i1, i2 = buf[2 * total:3 * total].split((n_x, total - n_x))
     d1, d2 = buf[3 * total:].view(torch.float32).split((n_x, total - n_x))
     return d1.view(B, N), i1.view(B, N), d2.view(B, M), i2.view(B, M)
-
-
-nn_both.launches = 0

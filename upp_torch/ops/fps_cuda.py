@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 _BIG = 1e10          # running-distance start of a valid slot (pointnet2's)
@@ -125,11 +126,8 @@ def fps_idx(xyz: torch.Tensor, n_samples: int,
     _raise_on(cuda_build.launch(_lib().upp_fps, xyz.device, xyz.data_ptr(),
                                 None if init is None else init.data_ptr(), B, N, n_samples,
                                 idx.data_ptr()))
-    fps_idx.launches += 1
+    profiling.count("launches.fps")
     return idx
-
-
-fps_idx.launches = 0
 
 
 def cluster_skip_stats(xyz: torch.Tensor, n_samples: int,
@@ -140,7 +138,7 @@ def cluster_skip_stats(xyz: torch.Tensor, n_samples: int,
     a warp skipped its points: (idx, skipped warp-rounds, warp-rounds), over
     the warps that hold points that can be chosen. A measurement entry: the
     port's paths call ``fps_idx``; a launch here counts in
-    ``fps_idx.launches`` all the same."""
+    ``launches.fps`` all the same."""
     init = _checked(xyz, n_samples, valid, start_idx)
     B, N, _ = xyz.shape
     if N <= MAX_BLOCK_N:
@@ -150,6 +148,6 @@ def cluster_skip_stats(xyz: torch.Tensor, n_samples: int,
     _raise_on(cuda_build.launch(_lib().upp_fps_cluster_stats, xyz.device, xyz.data_ptr(),
                                 None if init is None else init.data_ptr(), B, N, n_samples,
                                 idx.data_ptr(), stats.data_ptr()))
-    fps_idx.launches += 1
+    profiling.count("launches.fps")
     skipped, total = stats.tolist()
     return idx, skipped, total

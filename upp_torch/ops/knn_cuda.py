@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 MAX_K = 64       # csrc/knn.cu kMaxK: two kept keys per lane of the query's warp
@@ -107,11 +108,8 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, gather: bool
     if err != 0:
         msg = _lib().upp_knn_error_string(err).decode()
         raise RuntimeError(f"knn kernel launch failed: {msg} ({err})")
-    knn.launches += 1
+    profiling.count("launches.knn")
     return d, idx, nbr
-
-
-knn.launches = 0
 
 
 def knn_select(query: torch.Tensor, points: torch.Tensor, k: int
@@ -121,11 +119,8 @@ def knn_select(query: torch.Tensor, points: torch.Tensor, k: int
     [B,N,3], k <= 1024, N <= 2^20. A cluster of blocks a query: meant for
     few queries (``knn`` serves the many-query call sites up to k = 64)."""
     d, idx, _ = _select(query, points, k, stats=False)
-    knn_select.launches += 1
+    profiling.count("launches.knn_select")
     return d, idx
-
-
-knn_select.launches = 0
 
 
 def select_stats(query: torch.Tensor, points: torch.Tensor, k: int
@@ -134,10 +129,10 @@ def select_stats(query: torch.Tensor, points: torch.Tensor, k: int
     bin after the first pass and the number of refining passes the kernel
     made (more than ``SELECT_CANDIDATES`` in that bin): (d, idx, stats
     [B*S, 2] int64). A measurement entry: the port's paths call
-    ``knn_select``; a launch here counts in ``knn_select.launches`` all the
+    ``knn_select``; a launch here counts in ``launches.knn_select`` all the
     same."""
     out = _select(query, points, k, stats=True)
-    knn_select.launches += 1
+    profiling.count("launches.knn_select")
     return out
 
 

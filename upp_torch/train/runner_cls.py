@@ -32,6 +32,7 @@ from ..ops.fps import fps
 from ..parallel import shard
 from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
+from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from .ckpt_io import load_weights
 from .metrics import AccMetric, AverageMeter, cross_entropy_loss_acc
@@ -118,18 +119,23 @@ def make_train_step(model, optimizer, config, args):
 
     def train_step(pts: torch.Tensor, label: torch.Tensor,
                    draws: Optional[CorruptDraws] = None):
-        gen = step_generator(gens, pts.device, seed, optimizer.calls)
-        model.train()
-        with shard.global_batch(shard.this_rank(), gen):
-            points = corrupt_batch(pts, **corrupt_kw, generator=gen, draws=draws)
-            logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
-                           point_num=npoints)
-        loss, acc = cross_entropy_loss_acc(logits, label)
-        optimizer.zero_grad()
-        loss.backward()
-        optimizer.step()
-        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
-        return {"loss": loss, "acc": acc}
+        with annotate("train_step"):
+            gen = step_generator(gens, pts.device, seed, optimizer.calls)
+            model.train()
+            with shard.global_batch(shard.this_rank(), gen):
+                points = corrupt_batch(pts, **corrupt_kw, generator=gen, draws=draws)
+                logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
+                               point_num=npoints)
+            loss, acc = cross_entropy_loss_acc(logits, label)
+            # the gradients must be cleared before the backward and read
+            # after the step, so the clearing sits outside both spans
+            optimizer.zero_grad()
+            with annotate("backward"):
+                loss.backward()
+            with annotate("optimizer"):
+                optimizer.step()
+            loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
+            return {"loss": loss, "acc": acc}
 
     return train_step
 
@@ -144,13 +150,14 @@ def make_eval_step(model, config, args):
 
     @torch.inference_mode()
     def eval_step(pts: torch.Tensor) -> torch.Tensor:
-        model.eval()
-        points, _ = fps(pts, npoints)
-        if normalize:
-            points = normalize_unit_sphere(points)
-        logits = model(points, completion_prompt=noisy_validate,
-                       denoise=noisy_validate, point_num=npoints)
-        return logits.argmax(-1)
+        with annotate("eval_step"):
+            model.eval()
+            points, _ = fps(pts, npoints)
+            if normalize:
+                points = normalize_unit_sphere(points)
+            logits = model(points, completion_prompt=noisy_validate,
+                           denoise=noisy_validate, point_num=npoints)
+            return logits.argmax(-1)
 
     return eval_step
 

@@ -31,6 +31,7 @@ from ..ops.fps import fps
 from ..parallel import shard
 from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
 from ..utils.logger import get_logger, print_log
+from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, CDMetric, Metrics, completion_metrics
 from .optim import build_optimizer, count_params, set_trainable, step_generator
@@ -155,20 +156,22 @@ def make_pretask_eval_step(model, config, mode: str = "easy"):
 
     @torch.no_grad()
     def eval_step(gt: torch.Tensor, viewpoint: torch.Tensor):
-        model.eval()
-        partial = partial_point_cloud(gt, num_crop, sample_points=npoints,
-                                      viewpoint=viewpoint)
-        partial_center, _ = fps(partial, 128)
-        predict_center, rebuild = model(partial, point_num=npoints,
-                                        train_with_gaussian=False)
-        coarse = torch.cat([partial_center, predict_center], dim=1)
-        dense = torch.cat([partial, rebuild], dim=1)
-        out = {"sparse_l1": chamfer_l1_per_sample(coarse, gt) * 1000,
-               "sparse_l2": chamfer_l2_per_sample(coarse, gt) * 1000,
-               "dense_l1": chamfer_l1_per_sample(dense, gt) * 1000,
-               "dense_l2": chamfer_l2_per_sample(dense, gt) * 1000}
-        out.update(completion_metrics(dense, gt))
-        return out
+        with annotate("pretask_eval_step"):
+            model.eval()
+            partial = partial_point_cloud(gt, num_crop, sample_points=npoints,
+                                          viewpoint=viewpoint)
+            partial_center, _ = fps(partial, 128)
+            predict_center, rebuild = model(partial, point_num=npoints,
+                                            train_with_gaussian=False)
+            coarse = torch.cat([partial_center, predict_center], dim=1)
+            dense = torch.cat([partial, rebuild], dim=1)
+            with annotate("chamfer"):
+                out = {"sparse_l1": chamfer_l1_per_sample(coarse, gt) * 1000,
+                       "sparse_l2": chamfer_l2_per_sample(coarse, gt) * 1000,
+                       "dense_l1": chamfer_l1_per_sample(dense, gt) * 1000,
+                       "dense_l2": chamfer_l2_per_sample(dense, gt) * 1000}
+                out.update(completion_metrics(dense, gt))
+            return out
 
     return eval_step
 

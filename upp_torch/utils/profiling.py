@@ -5,8 +5,8 @@ The reference has no profiler beyond wall-clock AverageMeters and
 commented-out ptflops probes (``tools/runner_module.py:77-79,95-96``).
 Here:
 
-* ``annotate(name)``: a named range in a ``torch.profiler`` trace
-  (``record_function``), and an NVTX range when CUDA is present;
+* the recorder: ``annotate(name)`` spans, ``count(name)`` counters,
+  ``tracing()`` to turn it on, ``units()`` to read what it holds (below);
 * ``maybe_trace(dir)``: a ``torch.profiler`` trace of the enclosed block
   written to ``dir`` (or ``UPP_PROFILE_DIR``) as Chrome trace JSON;
 * ``cost_analysis(fn, *args)``: FLOPs (``FlopCounterMode``) and bytes
@@ -15,34 +15,231 @@ Here:
 * ``profile_train_step``: the per-phase wall-time table of the flagship
   PEFT train step, by ablation (``python -m upp_torch.utils.profiling
   [config.yaml] [--deep]``, on the card).
+
+**The recorder.** ``with annotate(name):`` marks a span. It is off by
+default: then ``annotate`` tests two flags and returns a shared no-op, with
+no profiler range, no CUDA event and no allocation. It is on inside
+``tracing()`` and whenever a ``torch.profiler`` is recording. An open span
+with no open span above it is a root; a root and the spans under it are a
+*unit* (the runners' step closures are roots). A span on records its name,
+its parent, the host clock at both ends (``time.time_ns()``, the clock
+``torch.profiler`` stamps its events with), a ``record_function`` range
+while a profiler records (so it stands in that profiler's trace), and, once
+the process uses CUDA, a timing event on the current stream at both ends:
+its *device window*, from the moment the device finished the work enqueued
+before the span to the moment it finished the span's own.
+
+``count(name, n)`` adds to a counter, always (the kernel wrappers count
+their launches as ``launches.<kernel>``). A root stores the change of every
+counter over its unit. While a root is open on CUDA the recorder sets
+``torch.cuda.set_sync_debug_mode("warn")`` (where it was off) and counts
+the synchronising calls it reports on the root's thread as ``host_syncs``;
+such a report from another thread is dropped (the mode is process-wide and
+on only because the recorder set it), and every other warning passes on
+as it came.
+
+``units()`` synchronises once, places every device window on the host
+clock by one anchor event (recorded after the sync, so it runs at once)
+and returns each unit with its spans' host ms and window ms and its
+counter changes. A window is a stretch of the stream's timeline, so it
+holds the device's idle time inside the span as well as its work: where
+the host is slower than the device, a window follows the host. The
+recorder keeps the last ``MAX_UNITS`` units; ``reset()`` clears them and
+the counters. Spans change no arithmetic.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import os
+import threading
 import time
-from typing import Any, Dict, Optional
+import warnings
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+MAX_UNITS = 4096
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+_forced = 0                                    # open ``tracing()`` blocks
+_counts: Dict[str, int] = {}
+_units: collections.deque = collections.deque(maxlen=MAX_UNITS)
+_local = threading.local()                     # .stack: this thread's open spans
+
+
+class _Off:
+    """The span when the recorder is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _SyncWatch:
+    """Counts the synchronising calls PyTorch reports on this thread while a
+    root is open: sync debug mode ``warn``, its warning shown every time, and
+    a ``warnings.showwarning`` in front of the one in place."""
+
+    def __init__(self):
+        self.thread = threading.get_ident()
+        self.syncs = 0
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        self.filter = warnings.filters[0]
+        self.shown = warnings.showwarning
+        warnings.showwarning = self.show
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def show(self, message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            self.shown(message, category, filename, lineno, file, line)
+        elif threading.get_ident() == self.thread:
+            self.syncs += 1
+
+    def close(self) -> int:
+        torch.cuda.set_sync_debug_mode(0)
+        if warnings.showwarning == self.show:
+            warnings.showwarning = self.shown
+        with contextlib.suppress(ValueError):
+            warnings.filters.remove(self.filter)
+        return self.syncs
+
+
+class _Span:
+    __slots__ = ("name", "parent", "root", "spans", "start_ns", "end_ns", "events",
+                 "window_ns", "counts", "_range", "_before", "_watch")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        self.root = self.parent.root if self.parent is not None else self
+        self.events = self.window_ns = self.counts = self._range = None
+        if self.parent is None:
+            self.spans = []
+            self._before = dict(_counts)
+            self._watch = None
+            if torch.cuda.is_initialized() and torch.cuda.get_sync_debug_mode() == 0:
+                self._watch = _SyncWatch()
+        else:
+            self.root.spans.append(self)
+        stack.append(self)
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start_ns = time.time_ns()
+        if torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record()
+        self.end_ns = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        _local.stack.pop()
+        if self.parent is None:
+            if self._watch is not None:
+                count("host_syncs", self._watch.close())
+                self._watch = None
+            self.counts = {k: v - self._before.get(k, 0) for k, v in _counts.items()
+                           if v != self._before.get(k, 0)}
+            self._before = None
+            _units.append(self)
+        return False
+
+
+def annotate(name: str):
+    """A span named ``name`` (a context manager); a shared no-op while the
+    recorder is off."""
+    if _forced or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
 
 @contextlib.contextmanager
-def annotate(name: str):
-    """Named trace region: a ``torch.profiler`` range, and an NVTX range
-    when CUDA is present."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
+def tracing():
+    """Turn the recorder on for the enclosed block."""
+    global _forced
+    _forced += 1
     try:
-        with torch.profiler.record_function(name):
-            yield
+        yield
     finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+        _forced -= 1
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """The counters as they stand."""
+    return dict(_counts)
+
+
+def reset() -> None:
+    """Forget every unit held and zero the counters."""
+    _units.clear()
+    _counts.clear()
+
+
+def _place(spans) -> None:
+    """Each span's device window on the host clock (ns), its events freed."""
+    pending = [s for s in spans if s.events is not None]
+    if not pending:
+        return
+    torch.cuda.synchronize()
+    anchor = torch.cuda.Event(enable_timing=True)
+    anchor.record()
+    anchor.synchronize()
+    now = time.time_ns()
+    for s in pending:
+        a, b = s.events
+        s.window_ns = (now - round(a.elapsed_time(anchor) * 1e6),
+                       now - round(b.elapsed_time(anchor) * 1e6))
+        s.events = None
+
+
+def _row(s) -> Dict[str, Any]:
+    win = s.window_ns
+    return {"name": s.name, "parent": s.parent.name if s.parent is not None else None,
+            "unit": s.root.name, "start_ns": s.start_ns, "end_ns": s.end_ns,
+            "host_ms": (s.end_ns - s.start_ns) / 1e6,
+            "window_start_ns": win[0] if win else None,
+            "window_end_ns": win[1] if win else None,
+            "window_ms": (win[1] - win[0]) / 1e6 if win else None}
+
+
+def units() -> List[Dict[str, Any]]:
+    """The units held, oldest first: the root's row (``name``, ``host_ms``,
+    ``window_ms``, the ends of each on the host clock), ``spans`` (a row
+    each, in the order they opened, with ``parent`` and ``unit``) and
+    ``counts`` (each counter that changed over the unit, by how much).
+    Windows are None without CUDA."""
+    held = list(_units)
+    _place([s for u in held for s in (u, *u.spans)])
+    return [{**_row(u), "spans": [_row(s) for s in u.spans], "counts": dict(u.counts)}
+            for u in held]
 
 
 @contextlib.contextmanager
