@@ -24,12 +24,16 @@ Phases, each fatal on failure:
      atol 1e-6) at the pretask's (batch 64) and the cls train step's
      (batch 120) gradient shapes; time both backwards;
   4. clean eval: ``make_eval_step`` (FPS 8192→1024, downstream pass, argmax)
-     at full width on 120 synthetic 8192-point clouds, seeded weights;
+     at full width on 120 synthetic 8192-point clouds, seeded weights; the
+     replayed step's predictions equal the eager first call's;
   5. robust inference: ``corrupt_batch`` (viewpoint crop 8192→1024, +48
      lidar, +24 shell points) then the 3-pass ``PointMAEUnify`` at full
      width, batch 120: finite logits, launch counts of one step, time; then
-     ``torch.profiler`` over 3 steps: device-busy ms per step, idle share,
-     the FPS, kNN and Chamfer kernels' device time;
+     a step of replayed CUDA graphs: its three replays, its ``launches.*``
+     equal to the eager step's, and the logits of the first step's input
+     bit-equal to the eager ones; then ``torch.profiler`` over 3 steps:
+     device-busy ms per step, idle share, the FPS, kNN and Chamfer kernels'
+     device time;
   6. card vs CPU: the same weights and corrupted input at batch 8 through
      the kernels on the card and the plain versions on the CPU: logits
      within rtol 1e-3 / atol 2e-3, equal argmax;
@@ -3444,6 +3448,7 @@ def main() -> int:
     from upp_torch.ops import cuda_build
     from upp_torch.train.pipeline import corrupt_batch
     from upp_torch.train.runner_cls import PEFT_LIST, init_model, make_eval_step
+    from upp_torch.utils import cuda_graphs, profiling
     from upp_torch.utils.config import ConfigDict, cfg_from_yaml_file
 
     device = resolve_device("cuda")
@@ -3491,6 +3496,8 @@ def main() -> int:
     if preds.shape != (B,) or not ((preds >= 0) & (preds < config.model.cls_dim)).all():
         raise AssertionError(f"clean eval: bad predictions {preds}")
     clean_ms = cuda_ms(lambda: eval_step(clouds), reps=3, warmup=1)
+    if not torch.equal(eval_step(clouds), preds):       # a replay
+        raise AssertionError("clean eval: the replayed step's predictions differ")
     print(f"[clean eval] launches {clean_counts}; {clean_ms:.2f} ms/batch, "
           f"{B / clean_ms * 1e3:.1f} clouds/s (B={B}; {card})", flush=True)
 
@@ -3505,6 +3512,9 @@ def main() -> int:
             return points, model(points, denoise=True, completion_prompt=True,
                                  point_num=NPOINTS)
 
+    # phase 4 left a graph of the downstream pass at this shape, whose
+    # replay the Recorder's wrappers would not see: the path runs eager
+    cuda_graphs.clear(model)
     reset_counts()
     with Recorder() as rec:
         points, logits = robust_step(clouds, gen)
@@ -3517,7 +3527,21 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     robust_ms = cuda_ms(lambda: robust_step(clouds, gen), reps=3, warmup=1)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[robust] launches of one step {robust_counts}; {robust_ms:.2f} ms/batch, "
+    # the warm-up captured the passes: the next step replays them
+    reset_counts()
+    robust_step(clouds, gen)
+    torch.cuda.synchronize()
+    replays = profiling.counts().get("cuda_graph.replays", 0)
+    if replays != 3 or read_counts() != robust_counts:
+        raise AssertionError(f"robust inference, replayed: {replays} replays, launches "
+                             f"{read_counts()} != {robust_counts}")
+    with torch.inference_mode():
+        replayed = model(points, denoise=True, completion_prompt=True, point_num=NPOINTS)
+    if not torch.equal(replayed, logits):
+        raise AssertionError(f"robust inference: replayed logits differ by "
+                             f"{(replayed - logits).abs().max().item()}")
+    print(f"[robust] launches of one step {robust_counts}, the same in a step of "
+          f"{replays} replays, logits bit-equal replayed; {robust_ms:.2f} ms/batch, "
           f"{B / robust_ms * 1e3:.1f} clouds/s, peak {peak_gib:.2f} GiB "
           f"(B={B}; {card})", flush=True)
     profile_steps(lambda: robust_step(clouds, gen), "robust", robust_ms, card)

@@ -1,0 +1,314 @@
+"""CUDA graphs of the inference passes (``upp_torch/utils/cuda_graphs.py``):
+when ``run`` graphs and when it runs eager, on the CPU; on a card (the
+``card`` tests, which skip without one; this file imports no JAX, so on the
+card's machine it runs alone: ``python -m pytest --noconftest -m card
+tests/test_torch_port_cuda_graphs.py``), the graphed eval steps against the
+same steps run eager.
+
+On the CPU every call runs eager, so the eval steps' answers there are the
+passes composed by hand, as the steps computed them before any graph."""
+
+import copy
+import pickle
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from upp_torch.models import build_model_from_cfg
+from upp_torch.ops.chamfer import chamfer_l1_per_sample, chamfer_l2_per_sample
+from upp_torch.ops.corrupt import partial_point_cloud
+from upp_torch.ops.fps import fps
+from upp_torch.train import runner_cls, runner_pretask
+from upp_torch.train.metrics import completion_metrics
+from upp_torch.utils import cuda_graphs, profiling
+from upp_torch.utils.config import ConfigDict
+
+BLOCKS = {"mask_ratio": 0.5, "mask_type": "rand", "trans_dim": 48, "encoder_dims": 48,
+          "depth": 3, "drop_path_rate": 0.1, "num_heads": 4, "decoder_depth": 2,
+          "decoder_num_heads": 4}
+PROMPTS = {"rectify_adapter": True, "rectify_prompts": True, "rectify_prompts_num": 2,
+           "rectify_prompts_depth": 2, "rectify_depth": 2,
+           "pretask_adapter": True, "pretask_prompts": True, "pretask_prompts_num": 2,
+           "pretask_prompts_depth": 3, "pretask_depth": 3}
+CLS_MODEL = {"NAME": "Point_MAE_unify", "transformer_config": BLOCKS, "cls_dim": 5,
+             "group_size": 16, "num_group": 32, "gather_idx": False,
+             "prompt_propagation_after": True,
+             "prompter_config": {**PROMPTS, "downstream_adapter": True,
+                                 "downstream_prompts": True, "downstream_prompts_num": 3,
+                                 "downstream_prompts_depth": 2, "downstream_depth": 3}}
+PRETASK_MODEL = {"NAME": "Point_MAE_pretask_dev", "transformer_config": BLOCKS,
+                 "group_size": 8, "num_group": 32, "gather_idx": True,
+                 "prompt_propagation_after": True, "prompter_config": PROMPTS}
+N_DATASET = 512
+CONFIG = ConfigDict.from_nested({
+    "dataset": {"val": {"_base_": {"N_POINTS": N_DATASET}}},
+    "npoints": 128, "noisy_validate": True})
+ARGS = types.SimpleNamespace(normalize=False)
+VIEWPOINT = (1.0, -1.0, 1.0)
+
+
+@pytest.fixture(autouse=True)
+def fresh_recorder():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def model_of(cfg, device="cpu", **change):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return build_model_from_cfg(copy.deepcopy({**cfg, **change})).to(device).eval()
+
+
+def clouds(b, n, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32)).to(device)
+
+
+# -- on the CPU ----------------------------------------------------------------
+
+@pytest.mark.parametrize("reason", ["grad", "training", "ranks", "device"])
+def test_the_helper_runs_eager_and_counts_it(reason, monkeypatch):
+    """Grad on, a training module, two ranks or a host tensor: ``run`` calls
+    ``fn`` as it is, counts ``cuda_graph.eager`` and keeps no graph."""
+    owner = torch.nn.Linear(3, 2).train(reason == "training")
+    if reason == "ranks":
+        monkeypatch.setattr(cuda_graphs, "get_dist_info", lambda: (0, 2))
+    x = torch.randn(4, 3)
+    with torch.set_grad_enabled(reason == "grad"):
+        assert cuda_graphs.eager_reason(owner, (x,)) == reason
+        for _ in range(3):
+            out = cuda_graphs.run(owner, "site", owner, x)
+            assert torch.equal(out, owner(x))
+    assert profiling.counts() == {"cuda_graph.eager": 3}
+    assert "_cuda_graphs" not in vars(owner)
+
+
+def test_a_key_runs_eager_then_captures_then_replays(monkeypatch):
+    """The control flow past the conditions: a key's first call eager, its
+    second captured, later ones replayed; at most ``MAX_KEYS`` keys a site,
+    the least recently used dropped; a moved parameter recaptures."""
+    owner = torch.nn.Linear(3, 2).eval()
+    made = []
+
+    def capture(graphs, owner, fn, args):
+        made.append(args[0].shape[0])
+        if graphs.places is None:
+            graphs.places = cuda_graphs._Places(owner)
+        return types.SimpleNamespace(rows=args[0].shape[0])
+
+    monkeypatch.setattr(cuda_graphs, "eager_reason", lambda owner, args: None)
+    monkeypatch.setattr(cuda_graphs, "_capture", capture)
+    monkeypatch.setattr(cuda_graphs, "_replay", lambda entry, args: ("replay", entry.rows))
+
+    def call(rows):
+        return cuda_graphs.run(owner, "site", lambda x: ("eager", x.shape[0]),
+                               torch.zeros(rows, 3))
+
+    assert [call(1), call(1), call(1)] == [("eager", 1), ("replay", 1), ("replay", 1)]
+    assert made == [1]
+    for rows in range(2, 2 + cuda_graphs.MAX_KEYS):     # 1 is the least recent: dropped
+        call(rows)
+    assert call(2) == ("replay", 2) and call(1) == ("eager", 1) and made == [1, 2]
+    with torch.no_grad():
+        owner.weight.add_(1.0)                          # in place: the graphs stay
+    assert call(2) == ("replay", 2) and made == [1, 2]
+    owner.weight = torch.nn.Parameter(owner.weight.detach().clone())
+    assert call(2) == ("replay", 2) and made == [1, 2, 2]
+    assert profiling.counts()["cuda_graph.eager"] == 2 + cuda_graphs.MAX_KEYS
+
+
+def test_parameters_moved_or_in_place_are_told_apart():
+    owner = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.BatchNorm1d(4)).eval()
+    graphs = cuda_graphs.Graphs()
+    assert not graphs.moved(owner)                      # nothing captured yet
+    graphs.places = cuda_graphs._Places(owner)
+    with torch.no_grad():
+        owner[0].weight.mul_(2.0)
+        owner[1].running_mean.add_(1.0)
+    assert not graphs.moved(owner)
+    owner[0].bias.data = owner[0].bias.data.clone()     # as ``.to()`` moves it
+    assert graphs.moved(owner)
+    graphs.places = cuda_graphs._Places(owner)
+    state = {k: v.clone() for k, v in owner.state_dict().items()}
+    owner.load_state_dict(state, assign=True)
+    assert graphs.moved(owner)
+    graphs.places = cuda_graphs._Places(owner)
+    owner[1]._buffers["running_var"] = owner[1].running_var.clone()   # resharding's way
+    assert graphs.moved(owner)
+
+
+def test_a_copy_or_a_pickle_of_a_model_holds_no_graphs():
+    model = model_of(CLS_MODEL)
+    graphs = cuda_graphs.graphs_of(model)
+    graphs.sites["downstream"] = {"key": None}
+    for other in (copy.deepcopy(model), pickle.loads(pickle.dumps(model))):
+        assert cuda_graphs.graphs_of(other).sites == {}
+    assert cuda_graphs.graphs_of(model) is graphs
+    cuda_graphs.clear(model)
+    assert "_cuda_graphs" not in vars(model)
+
+
+def test_cls_eval_step_answers_as_its_passes_composed():
+    model = model_of(CLS_MODEL)
+    seen = []
+    model.register_forward_hook(lambda module, args, out: seen.append(out))
+    step = runner_cls.make_eval_step(model, CONFIG, ARGS)
+    for seed in range(2):
+        pts = clouds(3, 256, seed)
+        labels = step(pts)
+        with torch.inference_mode():
+            p = fps(pts, 128)[0]
+            p = model.denoise_pts(p, 128)
+            p = model.complete_and_resample(p, 128)[0]
+            logits = model.classify(p)
+        assert torch.equal(seen[-1], logits) and torch.equal(labels, logits.argmax(-1))
+    assert len(seen) == 2 and profiling.counts() == {"cuda_graph.eager": 6}
+
+
+def test_pretask_eval_step_answers_as_its_passes_composed():
+    model = model_of(PRETASK_MODEL)
+    step = runner_pretask.make_pretask_eval_step(model, CONFIG, "easy")
+    num_crop = int(N_DATASET * runner_pretask.CROP_RATIOS["easy"])
+    vp = torch.tensor(VIEWPOINT)
+    for seed in range(2):
+        gt = clouds(2, N_DATASET, seed)
+        got = step(gt, vp)
+        with torch.no_grad():
+            partial = partial_point_cloud(gt, num_crop, sample_points=128, viewpoint=vp)
+            partial_center, _ = fps(partial, 128)
+            predict_center, rebuild = model.complete(partial)
+            coarse = torch.cat([partial_center, predict_center], dim=1)
+            dense = torch.cat([partial, rebuild], dim=1)
+            want = {"sparse_l1": chamfer_l1_per_sample(coarse, gt) * 1000,
+                    "sparse_l2": chamfer_l2_per_sample(coarse, gt) * 1000,
+                    "dense_l1": chamfer_l1_per_sample(dense, gt) * 1000,
+                    "dense_l2": chamfer_l2_per_sample(dense, gt) * 1000,
+                    **completion_metrics(dense, gt)}
+        assert list(got) == list(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert profiling.counts() == {"cuda_graph.eager": 6}
+
+
+# -- on a card -----------------------------------------------------------------
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def cls_setup(half=False):
+    model = model_of(CLS_MODEL, "cuda", if_half=half)
+    seen = []
+    model.register_forward_hook(lambda module, args, out: seen.append(out))
+    return model, runner_cls.make_eval_step(model, CONFIG, ARGS), seen
+
+
+def pretask_setup():
+    model = model_of(PRETASK_MODEL, "cuda")
+    return model, runner_pretask.make_pretask_eval_step(model, CONFIG, "easy")
+
+
+def batches(kind):
+    """Three batches of 6 and three of 4 (a second key), each other clouds."""
+    n = 256 if kind == "cls" else N_DATASET
+    return [clouds(b, n, seed, "cuda") for seed, b in enumerate((6, 6, 6, 4, 4, 4))]
+
+
+def eager(model, step, *args):
+    """The step run eager: its model's graphs dropped before the call."""
+    cuda_graphs.clear(model)
+    return step(*args)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("half", [False, True])
+def test_graphed_cls_eval_step_equals_eager(half):
+    need_card()
+    model, step, seen = cls_setup(half)
+    got = []
+    for pts in batches("cls"):
+        got.append((step(pts), seen[-1]))
+    want = []
+    for pts in batches("cls"):
+        want.append((eager(model, step, pts), seen[-1]))
+    for (labels, logits), (labels_e, logits_e) in zip(got, want):
+        assert torch.equal(logits, logits_e) and torch.equal(labels, labels_e)
+    assert len({id(z) for z in seen}) == len(seen) == 12     # the hook: a fresh tensor a call
+
+
+@pytest.mark.card
+def test_graphed_pretask_eval_step_equals_eager():
+    need_card()
+    model, step = pretask_setup()
+    vp = torch.tensor(VIEWPOINT)
+    got = [step(gt, vp) for gt in batches("pretask")]
+    kept = [{k: v.clone() for k, v in out.items()} for out in got]
+    want = [eager(model, step, gt, vp) for gt in batches("pretask")]
+    for out, before, ref in zip(got, kept, want):
+        assert all(torch.equal(out[k], before[k]) for k in ref)   # later calls left it alone
+        assert all(torch.equal(out[k], ref[k]) for k in ref)
+
+
+@pytest.mark.card
+def test_parameters_updated_in_place_show_and_replaced_ones_recapture():
+    need_card()
+    model, step, seen = cls_setup()
+    pts = batches("cls")[:3]
+    for p in pts:
+        step(p)
+    captures = profiling.counts()["cuda_graph.captures"]
+    with torch.no_grad():
+        model.cls_head_finetune[-1].bias.add_(0.5)
+        model.norm.weight.mul_(1.5)
+    step(pts[0])
+    got = seen[-1]
+    assert profiling.counts()["cuda_graph.captures"] == captures
+    assert torch.equal(got, (eager(model, step, pts[0]), seen[-1])[1])
+    for p in pts[:2]:
+        step(p)                                          # captured again
+    captures = profiling.counts()["cuda_graph.captures"]
+    state = {k: v.clone() + (0.25 if k.endswith("cls_head_finetune.8.bias") else 0)
+             for k, v in model.state_dict().items()}
+    model.load_state_dict(state, assign=True)
+    step(pts[1])
+    got = seen[-1]
+    assert profiling.counts()["cuda_graph.captures"] == captures + 3
+    assert torch.equal(got, (eager(model, step, pts[1]), seen[-1])[1])
+
+
+def unit_of(step, *args):
+    """The recorder's unit of one call of ``step``."""
+    profiling.reset()
+    with profiling.tracing():
+        step(*args)
+    (unit,) = profiling.units()
+    return unit
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["cls", "pretask"])
+def test_a_replayed_step_counts_its_launches_and_three_replays(kind):
+    """A replayed step adds the same ``launches.*`` as the step run eager,
+    three replays, and no host sync."""
+    need_card()
+    if kind == "cls":
+        model, step, _ = cls_setup()
+        args = batches("cls")[:1]
+    else:
+        model, step = pretask_setup()
+        args = (batches("pretask")[0], torch.tensor(VIEWPOINT))
+    eager_unit = unit_of(lambda *a: eager(model, step, *a), *args)
+    for _ in range(2):
+        step(*args)
+    unit = unit_of(step, *args)
+
+    def launches(u):
+        return {k: v for k, v in u["counts"].items() if k.startswith("launches.")}
+
+    assert launches(unit) == launches(eager_unit) and launches(unit)
+    assert unit["counts"]["cuda_graph.replays"] == 3
+    assert "cuda_graph.eager" not in unit["counts"]
+    assert unit["counts"].get("host_syncs", 0) == 0

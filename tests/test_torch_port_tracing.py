@@ -209,7 +209,8 @@ def test_cls_train_step_yields_its_spans():
         assert names(u) == TRAIN_SPANS
         assert all(s["parent"] == "train_step" for s in u["spans"])
         assert sum(s["host_ms"] for s in u["spans"]) <= u["host_ms"]
-        assert u["counts"] == {}                # the CPU runs no kernel wrapper
+        # the CPU runs no kernel wrapper; the three passes run eager (grad on)
+        assert u["counts"] == {"cuda_graph.eager": 3}
 
 
 @pytest.mark.parametrize("kind", ["eval", "pretask_eval"])

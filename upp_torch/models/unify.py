@@ -26,6 +26,7 @@ from ..ops.fps import fps
 from ..ops.group import group_points
 from ..ops.knn import knn_points
 from ..ops.propagate import propagate
+from ..utils import cuda_graphs
 from ..utils.config import to_config
 from ..utils.profiling import annotate
 from .blocks import PrompterConfig
@@ -135,6 +136,10 @@ class _UnifyCore(nn.Module):
             pts, pick_all = fps(pts, point_num)
         return pts, (center, rebuild), (pick_rebuild, pick_all)
 
+    def complete_cloud(self, pts: torch.Tensor, point_num: int) -> torch.Tensor:
+        """The cloud of ``complete_and_resample`` alone."""
+        return self.complete_and_resample(pts, point_num)[0]
+
     def complete(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Completion pass (``Point_MAE_unify.py:572-610``): prompted blocks
         → coarse missing centers → propagated mask tokens → decoder → dense
@@ -192,31 +197,37 @@ class PointMAEUnify(_UnifyCore):
     def forward(self, pts: torch.Tensor, *, completion_prompt: bool = False,
                 denoise: bool = False, point_num: int = 1024) -> torch.Tensor:
         """Logits [B, cls_dim] of clouds ``pts`` [B, P, 3]; ``denoise`` runs
-        the rectify pass, ``completion_prompt`` the completion pass."""
+        the rectify pass, ``completion_prompt`` the completion pass. In
+        inference each pass replays a CUDA graph where ``cuda_graphs.run``
+        allows it."""
         if denoise:
             with annotate("rectify"):
-                pts = self.denoise_pts(pts, point_num)
+                pts = cuda_graphs.run(self, "rectify", self.denoise_pts, pts, point_num)
         if completion_prompt:
             with annotate("completion"):
-                pts = self.complete_and_resample(pts, point_num)[0]
+                pts = cuda_graphs.run(self, "completion", self.complete_cloud, pts, point_num)
         with annotate("downstream"):
-            g = group_points(pts, self.num_group, self.group_size)
-            tokens = self.encoder(g.neighborhood)
-            B = tokens.shape[0]
-            pos = torch.cat([self.cls_pos.expand(B, -1, -1), self.pos_embed(g.center)], dim=1)
-            x = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
+            return cuda_graphs.run(self, "downstream", self.classify, pts)
 
-            propagation = None
-            if self.prompt_propagation_after:
-                lvl2 = group_points(g.center, self.num_group // 2, 8)
-                propagation = {"center1": g.center, "center1_idx": lvl2.idx,
-                               "center2": lvl2.center, "center2_idx": lvl2.center_idx,
-                               **self.gather_mode}
-            x = self.blocks(x, pos, path="downstream", classification=True,
-                            propagation=propagation)
-            x = self.norm(x)
-            concat_f = torch.cat([x[:, 0], x[:, 1:].amax(1)], dim=-1)
-            return self.cls_head_finetune(concat_f)
+    def classify(self, pts: torch.Tensor) -> torch.Tensor:
+        """The downstream pass: logits [B, cls_dim] of clouds ``pts``."""
+        g = group_points(pts, self.num_group, self.group_size)
+        tokens = self.encoder(g.neighborhood)
+        B = tokens.shape[0]
+        pos = torch.cat([self.cls_pos.expand(B, -1, -1), self.pos_embed(g.center)], dim=1)
+        x = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
+
+        propagation = None
+        if self.prompt_propagation_after:
+            lvl2 = group_points(g.center, self.num_group // 2, 8)
+            propagation = {"center1": g.center, "center1_idx": lvl2.idx,
+                           "center2": lvl2.center, "center2_idx": lvl2.center_idx,
+                           **self.gather_mode}
+        x = self.blocks(x, pos, path="downstream", classification=True,
+                        propagation=propagation)
+        x = self.norm(x)
+        concat_f = torch.cat([x[:, 0], x[:, 1:].amax(1)], dim=-1)
+        return self.cls_head_finetune(concat_f)
 
 
 @MODELS.register_module("Point_MAE_pretask_dev")
@@ -240,7 +251,7 @@ class PointMAEPretask(_UnifyCore):
                 train_with_gaussian: bool = True):
         if not (train_with_gaussian and self.training):
             with annotate("completion"):
-                return self.complete(pts)
+                return cuda_graphs.run(self, "completion", self.complete, pts)
         B, P, _ = pts.shape
         with annotate("rectify"):
             pred_vector = self.rectify_vectors(pts)

@@ -30,6 +30,7 @@ from ..ops.corrupt import (gaussian_shell_noise, lidar_noise, partial_point_clou
 from ..ops.fps import fps
 from ..parallel import shard
 from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
+from ..utils import cuda_graphs
 from ..utils.logger import get_logger, print_log
 from ..utils.profiling import annotate
 from . import checkpoint as ckpt
@@ -149,7 +150,10 @@ def make_pretask_train_step(model, optimizer, config, args):
 def make_pretask_eval_step(model, config, mode: str = "easy"):
     """``eval_step(gt [B, N, 3], viewpoint [3]) -> dict``: fixed-viewpoint
     crop → model → per-sample coarse/dense CD x1000 against the full cloud,
-    plus the Metrics table entries (``runner_pretask.py:359-388``)."""
+    plus the Metrics table entries (``runner_pretask.py:359-388``). In
+    inference the crop and the distances each replay a CUDA graph on the
+    model where ``cuda_graphs.run`` allows it, as the model's completion
+    pass does; a host viewpoint reaches the card without a sync."""
     npoints = int(config.npoints)
     n_pts_ds = int(config.dataset.val._base_.N_POINTS)
     num_crop = int(n_pts_ds * CROP_RATIOS[mode])
@@ -158,22 +162,44 @@ def make_pretask_eval_step(model, config, mode: str = "easy"):
     def eval_step(gt: torch.Tensor, viewpoint: torch.Tensor):
         with annotate("pretask_eval_step"):
             model.eval()
-            partial = partial_point_cloud(gt, num_crop, sample_points=npoints,
-                                          viewpoint=viewpoint)
-            partial_center, _ = fps(partial, 128)
+            viewpoint = _on_device(viewpoint, gt.device)
+            partial, partial_center = cuda_graphs.run(model, "pretask_crop", _crop, gt,
+                                                      viewpoint, num_crop, npoints)
             predict_center, rebuild = model(partial, point_num=npoints,
                                             train_with_gaussian=False)
-            coarse = torch.cat([partial_center, predict_center], dim=1)
-            dense = torch.cat([partial, rebuild], dim=1)
             with annotate("chamfer"):
-                out = {"sparse_l1": chamfer_l1_per_sample(coarse, gt) * 1000,
-                       "sparse_l2": chamfer_l2_per_sample(coarse, gt) * 1000,
-                       "dense_l1": chamfer_l1_per_sample(dense, gt) * 1000,
-                       "dense_l2": chamfer_l2_per_sample(dense, gt) * 1000}
-                out.update(completion_metrics(dense, gt))
-            return out
+                return cuda_graphs.run(model, "pretask_distances", _distances, gt, partial,
+                                       partial_center, predict_center, rebuild)
 
     return eval_step
+
+
+def _on_device(viewpoint: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``viewpoint`` on ``device``; a host one bound for a card goes through
+    pinned memory, so the copy waits for nothing the card is doing."""
+    if viewpoint.device == device or device.type != "cuda":
+        return viewpoint.to(device)
+    return viewpoint.to(torch.float32).pin_memory().to(device, non_blocking=True)
+
+
+def _crop(gt, viewpoint, num_crop: int, npoints: int):
+    """The eval crop: (the partial cloud [B, npoints, 3], its 128 FPS
+    centres)."""
+    partial = partial_point_cloud(gt, num_crop, sample_points=npoints, viewpoint=viewpoint)
+    return partial, fps(partial, 128)[0]
+
+
+def _distances(gt, partial, partial_center, predict_center, rebuild):
+    """Per-sample coarse and dense CD-L1 and -L2 x1000 of the completion
+    against ``gt``, and the Metrics table entries of the dense cloud."""
+    coarse = torch.cat([partial_center, predict_center], dim=1)
+    dense = torch.cat([partial, rebuild], dim=1)
+    out = {"sparse_l1": chamfer_l1_per_sample(coarse, gt) * 1000,
+           "sparse_l2": chamfer_l2_per_sample(coarse, gt) * 1000,
+           "dense_l1": chamfer_l1_per_sample(dense, gt) * 1000,
+           "dense_l2": chamfer_l2_per_sample(dense, gt) * 1000}
+    out.update(completion_metrics(dense, gt))
+    return out
 
 
 CD_NAMES = ["sparse_l1", "sparse_l2", "dense_l1", "dense_l2"]
