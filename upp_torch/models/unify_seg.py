@@ -20,9 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fps import fps
 from ..ops.group import group_points
 from ..utils.config import to_config
+from ..utils.profiling import annotate
 from .build import MODELS
 from .layers import BN_EPS, Dropout, Encoder, PointConv, PosEmbedMLP, batch_norm_last
 from .prompter import PointNetFeaturePropagation
@@ -112,9 +112,10 @@ class _SegTail(nn.Module):
         self.seg_head = SegHead(2 * n_taps * trans_dim + LABEL_DIM, cls_dim)
 
     def _segment(self, query, center, taps, cls_label):
-        x, glob = seg_features(taps, self.label_conv(cls_label))
-        f0 = self.propagation_0(query, center, query, x)        # [B, N, 1024]
-        return self.seg_head(f0, glob)
+        with annotate("segment"):
+            x, glob = seg_features(taps, self.label_conv(cls_label))
+            f0 = self.propagation_0(query, center, query, x)    # [B, N, 1024]
+            return self.seg_head(f0, glob)
 
 
 @MODELS.register_module("Point_MAE_unify_seg")
@@ -142,24 +143,22 @@ class PointMAEUnifySeg(_UnifyCore, _SegTail):
         [B, P, 3] and the one-hot category ``cls_label`` [B, 16]."""
         query = label_points if label_points is not None else pts
         if denoise:
-            pts = self.denoise_pts(pts, point_num)
+            with annotate("rectify"):
+                pts = self.denoise_pts(pts, point_num)
         if completion_prompt:
-            _, rebuild = self.complete(pts)
-            sample_rebuild, _ = fps(rebuild, point_num // 4)
-            pts = torch.cat([pts, sample_rebuild], dim=1)
-            if pts.shape[1] > point_num:
-                pts, _ = fps(pts, point_num)
-
-        g = group_points(pts, self.num_group, self.group_size)
-        tokens = self.encoder(g.neighborhood)
-        propagation = None
-        if self.prompt_propagation_after:
-            lvl2 = group_points(g.center, self.num_group // 2, 8)
-            propagation = {"center1": g.center, "center1_idx": lvl2.idx,
-                           "center2": lvl2.center, "center2_idx": lvl2.center_idx,
-                           **self.gather_mode}
-        _, taps = self.blocks(tokens, self.pos_embed(g.center), path="downstream",
-                              propagation=propagation, feature_blocks=FEATURE_BLOCKS)
+            with annotate("completion"):
+                pts = self.complete_cloud(pts, point_num)
+        with annotate("downstream"):
+            g = group_points(pts, self.num_group, self.group_size)
+            tokens = self.encoder(g.neighborhood)
+            propagation = None
+            if self.prompt_propagation_after:
+                lvl2 = group_points(g.center, self.num_group // 2, 8)
+                propagation = {"center1": g.center, "center1_idx": lvl2.idx,
+                               "center2": lvl2.center, "center2_idx": lvl2.center_idx,
+                               **self.gather_mode}
+            _, taps = self.blocks(tokens, self.pos_embed(g.center), path="downstream",
+                                  propagation=propagation, feature_blocks=FEATURE_BLOCKS)
         return self._segment(query, g.center, taps, cls_label)
 
 

@@ -25,6 +25,7 @@ from ..ops.corrupt import gaussian_shell_noise, lidar_noise, separate_point_clou
 from ..parallel import shard
 from ..parallel.dist import data_group, gather_samples, reduce_mean
 from ..utils.logger import get_logger, print_log
+from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, nll_seg_loss, seg_miou_metrics
 from .optim import build_optimizer, count_params, set_trainable, step_generator
@@ -70,38 +71,43 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
 
     def train_step(pts: torch.Tensor, cls_label: torch.Tensor, target: torch.Tensor,
                    draws: Optional[CorruptDraws] = None):
-        gen = step_generator(gens, pts.device, seed, optimizer.calls)
-        dr = draws or CorruptDraws()
-        model.train()
-        with shard.global_batch(shard.this_rank(), gen):
-            if augment is not None:
-                pts = augment(pts, gen, dr)
-            one_hot = to_categorical(cls_label, dtype=pts.dtype)
-            if unify and noisy:
-                points, _ = separate_point_cloud(pts, num_crop, viewpoint=dr.viewpoints,
-                                                 generator=gen, resample=False)
-                B, P, _ = points.shape
-                shell = gaussian_shell_noise((B, GAUSSIAN_NUM, 3), loc=0.0, scale=deviation,
-                                             shell_radius=noise_radius, generator=gen,
-                                             normal=dr.shell_normal, device=pts.device)
-                points = torch.cat([points, shell], dim=1)
-                lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
-                                    idx=dr.lidar_idx, factor=dr.lidar_factor)
-                points = torch.cat([points, lidar], dim=1)
-            else:
-                points, P = pts, pts.shape[1]
-            if unify:
-                out = model(points, one_hot, pts, completion_prompt=noisy, denoise=noisy,
-                            point_num=P)
-            else:
-                out = model(points, one_hot, pts)
-        loss = nll_seg_loss(out, target)
-        acc = (out.argmax(-1) == target).float().mean() * 100.0
-        optimizer.zero_grad()
-        loss.backward()
-        optimizer.step()
-        loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
-        return {"loss": loss, "acc": acc}
+        with annotate("train_step"):
+            gen = step_generator(gens, pts.device, seed, optimizer.calls)
+            dr = draws or CorruptDraws()
+            model.train()
+            with shard.global_batch(shard.this_rank(), gen):
+                if augment is not None:
+                    pts = augment(pts, gen, dr)
+                one_hot = to_categorical(cls_label, dtype=pts.dtype)
+                if unify and noisy:
+                    points, _ = separate_point_cloud(pts, num_crop, viewpoint=dr.viewpoints,
+                                                     generator=gen, resample=False)
+                    B, P, _ = points.shape
+                    shell = gaussian_shell_noise((B, GAUSSIAN_NUM, 3), loc=0.0,
+                                                 scale=deviation, shell_radius=noise_radius,
+                                                 generator=gen, normal=dr.shell_normal,
+                                                 device=pts.device)
+                    points = torch.cat([points, shell], dim=1)
+                    lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
+                                        idx=dr.lidar_idx, factor=dr.lidar_factor)
+                    points = torch.cat([points, lidar], dim=1)
+                else:
+                    points, P = pts, pts.shape[1]
+                if unify:
+                    out = model(points, one_hot, pts, completion_prompt=noisy, denoise=noisy,
+                                point_num=P)
+                else:
+                    out = model(points, one_hot, pts)
+            loss = nll_seg_loss(out, target)
+            acc = (out.argmax(-1) == target).float().mean() * 100.0
+            # cleared before the backward and read after the step: outside both spans
+            optimizer.zero_grad()
+            with annotate("backward"):
+                loss.backward()
+            with annotate("optimizer"):
+                optimizer.step()
+            loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
+            return {"loss": loss, "acc": acc}
 
     return train_step
 
