@@ -55,15 +55,21 @@ Phases, each fatal on failure:
      ``total_bs`` of ``cfgs/unify_modelnet_cls.yaml``), with ``PEFT_LIST``:
      finite loss and accuracy, every trainable tensor the step reaches
      changed and every other one bit-unchanged, the launch counts of one
-     step (its forward is the robust step's), no kNN backward, ms per step
-     and clouds/s (mean of 10 steps after a warm-up), peak memory, and a
-     ``torch.profiler`` profile over 3 steps;
+     step (its forward is the robust step's), no kNN backward; then a
+     fourth step, a replayed CUDA graph (the first ran eager, the second
+     captured): one replay, the eager step's ``launches.*``, no host sync,
+     finite, the same tensors moved; ms per step and clouds/s (mean of 10
+     steps after a warm-up), peak memory, and a ``torch.profiler`` profile
+     over 3 steps;
  11. cls train, joint stage: ``JOINT_PEFT_LIST`` switched in on the live
-     optimizer: the kNN backward runs (its calls by shape, each timed alone
-     in phase 3), the head is bit-unchanged by a step, the rectify
-     prompter moves; ms per step, peak memory and a profile, in which each
-     ``KnnKernel.backward`` call is a ``knn_backward`` range: its calls and
-     the device time of what it launched, per step;
+     optimizer, a new key whose first step runs eager: the kNN backward
+     runs (its calls by shape, each timed alone in phase 3), the head is
+     bit-unchanged by a step, the rectify prompter moves; after the key's
+     capture a replayed step checked as in phase 10; ms per step, peak
+     memory and a profile of the replayed steps; then eager steps (the
+     graph forced off) profiled, in which each ``KnnKernel.backward`` call
+     is a ``knn_backward`` range: its calls and the device time of what it
+     launched, per step;
  12. cls train card vs CPU: one step at batch 8 in each stage from the same
      weights and draws (drawn on the CPU), dropout and drop-path off: loss
      within rtol 1e-3 / atol 2e-3, the trainable gradients' global norm
@@ -79,8 +85,9 @@ Phases, each fatal on failure:
      ``total_bs``), ``SEG_PEFT_LIST``: the launch counts of one step (raw
      crop to 1536 points, +24 shell, +64 lidar, rectify, completion,
      downstream over 128 groups, kNN k=3 to the 2048 query points), finite
-     loss, trainable tensors changed and others bit-unchanged, ms per step
-     (mean of 10 after a warm-up), peak memory, a profile over 3 steps;
+     loss, trainable tensors changed and others bit-unchanged, a replayed
+     step checked as in phase 10, ms per step (mean of 10 after a warm-up),
+     peak memory, a profile over 3 steps;
  15. seg eval: the UPP eval step at batch 30: launch counts, normalised
      log-probabilities, ms per batch, a profile;
  16. seg train, full fine-tune: ``PointTransformer_seg`` (the model of
@@ -114,7 +121,8 @@ Phases, each fatal on failure:
  22. fine-tune cls: ``PointTransformer`` on the twin of
      ``cfgs/finetune_modelnet_cls.yaml`` (each split ``Synthetic``, 8192
      points) at batch 40: crop, noise, scale-translate, clip 10, every
-     parameter trainable; as phase 19, then its eval step at batch 40;
+     parameter trainable; as phase 19 with a replayed step checked as in
+     phase 10, then its eval step at batch 40;
  23. fine-tune card vs CPU at batch 8: eval logits within rtol 1e-3 / atol
      2e-3 with equal argmax; one train step from the same weights and draws
      (drawn on the CPU), dropout and drop-path off, no clip: loss within
@@ -187,7 +195,8 @@ Phases, each fatal on failure:
      forward + backward time at (1, 16384, 16384) and (32, 2048, 2048);
  33. bf16 cls PEFT step: ``cfgs/unify_synthetic_cls.yaml`` with ``if_half:
      True`` set in memory, batch 120, as phase 10 (launch counts, changed
-     and bit-unchanged tensors, ms per step, peak, profile); then the
+     and bit-unchanged tensors, a replayed step, ms per step, peak,
+     profile); then the
      float32 and bf16 steps timed in turns in this process (f32, bf16,
      bf16, f32), and both profiled: the GEMM rows by kind (float32 SIMT:
      ``sgemm``/``ffma``/``simt``; tensor core: ``bf16``/``nvjet``/``gmma``/
@@ -328,6 +337,7 @@ is the ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -1343,6 +1353,7 @@ def phase_cls_train(clouds, labels, config, card, device, backward_ms):
     # bnorm of blocks that do not propagate, the decoder's) never step
     used = {n for n, p in model.named_parameters() if p.grad is not None}
     n_moved, n_fixed = _check_moves("cls train (PEFT)", model, before, used)
+    check_replayed_step("cls train (PEFT)", train_step, model, (pts, lab), counts)
     n_unused = sum(p.requires_grad for p in model.parameters()) - len(used)
     step_ms = cuda_ms(lambda: train_step(pts, lab), reps=10, warmup=1)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1372,6 +1383,8 @@ def phase_cls_train(clouds, labels, config, card, device, backward_ms):
             n.startswith("rectify_prompter") for n in used):
         raise AssertionError(f"cls train (joint): wrong set stepped {sorted(used)[:8]}")
     n_moved, n_fixed = _check_moves("cls train (joint)", model, before, used)
+    train_step(pts, lab)                        # the joint key's capture
+    check_replayed_step("cls train (joint)", train_step, model, (pts, lab), joint_counts)
     joint_ms = cuda_ms(lambda: train_step(pts, lab), reps=10, warmup=1)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[cls train] joint: launches of one step {joint_counts}; loss {vals['loss']:.4f}; "
@@ -1379,9 +1392,13 @@ def phase_cls_train(clouds, labels, config, card, device, backward_ms):
           f"phase 3's calls timed alone; {n_moved} tensors changed, the head and {n_fixed} "
           f"others bit-unchanged; {joint_ms:.2f} ms/step, {B / joint_ms * 1e3:.1f} clouds/s, "
           f"peak {peak_gib:.2f} GiB (B={B}; {card})", flush=True)
-    with KnnBackwardRecorder():
-        prof = profile_steps(lambda: train_step(pts, lab), "cls train joint", joint_ms, card,
-                             ranges=("knn_backward",))
+    profile_steps(lambda: train_step(pts, lab), "cls train joint", joint_ms, card)
+    # a replayed step has no kNN backward range: its device time is read
+    # from eager steps
+    with KnnBackwardRecorder(), eager_steps():
+        eager_ms = cuda_ms(lambda: train_step(pts, lab), reps=3, warmup=1)
+        prof = profile_steps(lambda: train_step(pts, lab), "cls train joint eager", eager_ms,
+                             card, ranges=("knn_backward",))
     seen = prof["spans"]["knn_backward"][0] if prof else None
     if prof and seen != sum(bwd.calls.values()):
         print(f"[cls train joint profile] the profile saw {seen:g} kNN "
@@ -1542,11 +1559,13 @@ def seg_setup(config, device, unify):
 def phase_seg_train(name, batch, config, card, device, unify, want):
     """3 seg train steps at full width, batch 30: the launch counts of one
     step (``want``), finite loss and accuracy, every trainable tensor the
-    step reaches changed and every other one bit-unchanged; ms per step
+    step reaches changed and every other one bit-unchanged; a replayed step
+    held to the first (``check_replayed_step``); ms per step
     (mean of 10 after a warm-up), peak memory and a profile over 3 steps.
     Returns (launch counts of one step, the eval step)."""
     model, train_step, eval_step = seg_setup(config, device, unify)
-    return phase_train(name, train_step, model, batch, card, want, B_SEG), eval_step
+    return phase_train(name, train_step, model, batch, card, want, B_SEG,
+                       graphed=True), eval_step
 
 
 def phase_seg_eval(eval_step, batch, card):
@@ -1683,12 +1702,56 @@ def pretrain_setup(config, device):
     return model, make_pretrain_step(model, optimizer, config, args)
 
 
-def phase_train(name, step, model, batch, card, want, bsz):
+@contextlib.contextmanager
+def eager_steps():
+    """Every ``cuda_graphs.GraphedStep`` call inside runs eager, as a key's
+    first call does (the kNN backward's profiler ranges exist only there)."""
+    from upp_torch.utils import cuda_graphs
+    reason = cuda_graphs.step_eager_reason
+    cuda_graphs.step_eager_reason = lambda *a, **kw: "chip_smoke"
+    try:
+        yield
+    finally:
+        cuda_graphs.step_eager_reason = reason
+
+
+def check_replayed_step(name, step, model, batch, want):
+    """One train step of a key already captured (its first call ran eager,
+    its second captured): one replay and no eager step, the ``launches.*``
+    of the eager step (``want``), no host sync, finite metrics, every
+    tensor with a gradient changed and every other one bit-unchanged."""
+    from upp_torch.utils import profiling
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset_counts()
+    with profiling.tracing():
+        out = step(*batch)
+    (unit,) = profiling.units()
+    counts = read_counts()
+    graph = {k: v for k, v in unit["counts"].items() if k.startswith("cuda_graph.")}
+    syncs = unit["counts"].get("host_syncs", 0)
+    if counts != want or graph != {"cuda_graph.replays": 1} or syncs:
+        raise AssertionError(f"{name}, replayed: launches {counts} (eager {want}), "
+                             f"{graph}, {syncs} host syncs")
+    vals = {k: float(v) for k, v in out.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{name}, replayed: not finite: {vals}")
+    used = {n for n, p in model.named_parameters() if p.grad is not None}
+    n_moved, n_fixed = _check_moves(f"{name}, replayed", model, before, used)
+    print(f"[{name}] a replayed step: 1 replay, launches {counts} as the eager step's, 0 "
+          f"host syncs, " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+          + f"; {n_moved} tensors with a gradient changed, {n_fixed} others bit-unchanged",
+          flush=True)
+
+
+def phase_train(name, step, model, batch, card, want, bsz, graphed=False):
     """3 train steps: the launch counts of one (``want``), finite metrics,
     every tensor with a gradient changed and every other one bit-unchanged;
-    ms per step (mean of 10 after a warm-up), clouds/s, peak memory and a
-    profile over 3 steps. Returns the launch counts; ``phase_train.last``
-    holds (ms per step, peak GiB, the profile)."""
+    with ``graphed`` (a step of ``cuda_graphs.GraphedStep``: the first runs
+    eager, the second captures) a fourth, replayed, held to the first by
+    ``check_replayed_step``; ms per step (mean of 10 after a warm-up),
+    clouds/s, peak memory and a profile over 3 steps. Returns the launch
+    counts; ``phase_train.last`` holds (ms per step, peak GiB, the
+    profile)."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1705,6 +1768,8 @@ def phase_train(name, step, model, batch, card, want, bsz):
               flush=True)
     used = {n for n, p in model.named_parameters() if p.grad is not None}
     n_moved, n_fixed = _check_moves(name, model, before, used)
+    if graphed:
+        check_replayed_step(name, step, model, batch, counts)
     step_ms = cuda_ms(lambda: step(*batch), reps=10, warmup=1)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[{name}] launches of one step {counts}; {n_moved} tensors with a gradient "
@@ -1796,7 +1861,7 @@ def phase_finetune(clouds, labels, config, card, device):
     from upp_torch.train.runner_cls import make_eval_step
     model, _, step = cls_train_setup(config, device, None)
     counts = phase_train("finetune cls train", step, model, (clouds[:B_FT], labels[:B_FT]),
-                         card, FT_CALLS, B_FT)
+                         card, FT_CALLS, B_FT, graphed=True)
     eval_step = make_eval_step(model, config, types.SimpleNamespace(normalize=False))
     reset_counts()
     with Recorder() as rec:
@@ -2898,15 +2963,16 @@ def half_config(config):
     return half
 
 
-def phase_half(name, setup, config, batch, card, device, want, bsz):
+def phase_half(name, setup, config, batch, card, device, want, bsz, graphed=False):
     """The bf16 train step of ``config`` with ``if_half`` as ``phase_train``
-    (launch counts, changed and bit-unchanged tensors, ms, peak, profile),
+    (launch counts, changed and bit-unchanged tensors, with ``graphed`` a
+    replayed step, ms, peak, profile),
     then the float32 and bf16 steps timed in turns in this process and the
     float32 one profiled: the bf16 step must run tensor-core GEMMs and spend
     less device time in float32 SIMT GEMMs. ``setup(config, device)`` gives
     (model, step). Returns the bf16 step's launch counts."""
     model16, step16 = setup(half_config(config), device)
-    counts = phase_train(f"{name} bf16", step16, model16, batch, card, want, bsz)
+    counts = phase_train(f"{name} bf16", step16, model16, batch, card, want, bsz, graphed)
     _, peak16, prof16 = phase_train.last
     model32, step32 = setup(config, device)
     torch.cuda.synchronize()
@@ -3623,7 +3689,7 @@ def main() -> int:
     # 33-35. bf16 block stacks (if_half): the cls PEFT, pretask and pretrain
     # train steps, each beside its float32 step; 36. bf16 card vs CPU
     cls_half = phase_half("cls train PEFT", lambda c, d: cls_train_setup(c, d, PEFT_LIST)[::2],
-                          config, (clouds, labels), card, device, ROBUST_CALLS, B)
+                          config, (clouds, labels), card, device, ROBUST_CALLS, B, graphed=True)
     pretask_half = phase_half("pretask train", lambda c, d: pretask_setup(c, d)[::2],
                               pretask_config, (clouds[:B_PRETASK],), card, device,
                               PRETASK_TRAIN_CALLS, B_PRETASK)

@@ -31,6 +31,7 @@ from ..ops.corrupt import normalize_unit_sphere, scale_translate
 from ..ops.fps import fps
 from ..parallel import shard
 from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
+from ..utils import cuda_graphs
 from ..utils.logger import get_logger, print_log
 from ..utils.profiling import annotate
 from . import checkpoint as ckpt
@@ -102,7 +103,11 @@ def make_train_step(model, optimizer, config, args):
     so a resumed run draws what the uninterrupted run would have; dropout
     and drop-path too. Over several ranks ``pts`` is this rank's shard of
     the global batch (``parallel.shard.global_batch``) and the returned
-    loss and accuracy are the global batch's."""
+    loss and accuracy are the global batch's. On a card the forward passes,
+    the loss and the backward replay as one CUDA graph from a key's second
+    step on, the optimizer eager after it (``cuda_graphs.GraphedStep``:
+    eager over several ranks, with ``draws``, or when the optimizer
+    accumulates)."""
     noisy_train = bool(config.get("noisy_train", False))
     npoints = int(config.npoints)
     augmentation = config.get("data_augmentation", None)
@@ -117,24 +122,32 @@ def make_train_step(model, optimizer, config, args):
     seed = int(getattr(args, "seed", 0)) + 777
     gens = {}                       # the device generator, made at the first step
 
+    def forward_backward(pts: torch.Tensor, label: torch.Tensor,
+                         generator: torch.Generator, draws: Optional[CorruptDraws]):
+        with shard.global_batch(shard.this_rank(), generator):
+            points = corrupt_batch(pts, **corrupt_kw, generator=generator, draws=draws)
+            logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
+                           point_num=npoints)
+        loss, acc = cross_entropy_loss_acc(logits, label)
+        with annotate("backward"):
+            loss.backward()
+        return torch.stack([loss.detach(), acc.detach()])
+
+    graphed = cuda_graphs.GraphedStep(model, forward_backward)
+
     def train_step(pts: torch.Tensor, label: torch.Tensor,
                    draws: Optional[CorruptDraws] = None):
         with annotate("train_step"):
             gen = step_generator(gens, pts.device, seed, optimizer.calls)
             model.train()
-            with shard.global_batch(shard.this_rank(), gen):
-                points = corrupt_batch(pts, **corrupt_kw, generator=gen, draws=draws)
-                logits = model(points, completion_prompt=noisy_train, denoise=noisy_train,
-                               point_num=npoints)
-            loss, acc = cross_entropy_loss_acc(logits, label)
             # the gradients must be cleared before the backward and read
             # after the step, so the clearing sits outside both spans
             optimizer.zero_grad()
-            with annotate("backward"):
-                loss.backward()
+            metrics = graphed(pts, label, generator=gen, accumulate=optimizer.accumulate,
+                              draws=draws)
             with annotate("optimizer"):
                 optimizer.step()
-            loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
+            loss, acc = reduce_mean(metrics, data_group())
             return {"loss": loss, "acc": acc}
 
     return train_step

@@ -24,6 +24,7 @@ from ..data.partnormal import SEG_CLASSES
 from ..ops.corrupt import gaussian_shell_noise, lidar_noise, separate_point_cloud
 from ..parallel import shard
 from ..parallel.dist import data_group, gather_samples, reduce_mean
+from ..utils import cuda_graphs
 from ..utils.logger import get_logger, print_log
 from ..utils.profiling import annotate
 from . import checkpoint as ckpt
@@ -60,7 +61,8 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
     from a generator seeded from ``args.seed + 777`` and the optimizer's
     count of calls, as dropout and drop-path do; over several ranks drawn
     for the global batch, whose loss and accuracy it returns
-    (``parallel.shard``)."""
+    (``parallel.shard``). On a card all but the optimizer replays as one
+    CUDA graph from a key's second step on, as ``runner_cls``'s step."""
     num_crop = int(int(config.dataset.train._base_.N_POINTS) * CROP_RATIO)
     augment = resolve_augmentation(config.get("data_augmentation", None))
     noisy = bool(config.get("noisy_train", False))
@@ -69,44 +71,52 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
     seed = int(getattr(args, "seed", 0)) + 777
     gens = {}
 
+    def forward_backward(pts: torch.Tensor, cls_label: torch.Tensor, target: torch.Tensor,
+                         generator: torch.Generator, draws: Optional[CorruptDraws]):
+        dr = draws or CorruptDraws()
+        with shard.global_batch(shard.this_rank(), generator):
+            if augment is not None:
+                pts = augment(pts, generator, dr)
+            one_hot = to_categorical(cls_label, dtype=pts.dtype)
+            if unify and noisy:
+                points, _ = separate_point_cloud(pts, num_crop, viewpoint=dr.viewpoints,
+                                                 generator=generator, resample=False)
+                B, P, _ = points.shape
+                shell = gaussian_shell_noise((B, GAUSSIAN_NUM, 3), loc=0.0,
+                                             scale=deviation, shell_radius=noise_radius,
+                                             generator=generator, normal=dr.shell_normal,
+                                             device=pts.device)
+                points = torch.cat([points, shell], dim=1)
+                lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=generator,
+                                    idx=dr.lidar_idx, factor=dr.lidar_factor)
+                points = torch.cat([points, lidar], dim=1)
+            else:
+                points, P = pts, pts.shape[1]
+            if unify:
+                out = model(points, one_hot, pts, completion_prompt=noisy, denoise=noisy,
+                            point_num=P)
+            else:
+                out = model(points, one_hot, pts)
+        loss = nll_seg_loss(out, target)
+        acc = (out.argmax(-1) == target).float().mean() * 100.0
+        with annotate("backward"):
+            loss.backward()
+        return torch.stack([loss.detach(), acc.detach()])
+
+    graphed = cuda_graphs.GraphedStep(model, forward_backward)
+
     def train_step(pts: torch.Tensor, cls_label: torch.Tensor, target: torch.Tensor,
                    draws: Optional[CorruptDraws] = None):
         with annotate("train_step"):
             gen = step_generator(gens, pts.device, seed, optimizer.calls)
-            dr = draws or CorruptDraws()
             model.train()
-            with shard.global_batch(shard.this_rank(), gen):
-                if augment is not None:
-                    pts = augment(pts, gen, dr)
-                one_hot = to_categorical(cls_label, dtype=pts.dtype)
-                if unify and noisy:
-                    points, _ = separate_point_cloud(pts, num_crop, viewpoint=dr.viewpoints,
-                                                     generator=gen, resample=False)
-                    B, P, _ = points.shape
-                    shell = gaussian_shell_noise((B, GAUSSIAN_NUM, 3), loc=0.0,
-                                                 scale=deviation, shell_radius=noise_radius,
-                                                 generator=gen, normal=dr.shell_normal,
-                                                 device=pts.device)
-                    points = torch.cat([points, shell], dim=1)
-                    lidar = lidar_noise(points, LIDAR_NUM, low=1.2, scale=1.5, generator=gen,
-                                        idx=dr.lidar_idx, factor=dr.lidar_factor)
-                    points = torch.cat([points, lidar], dim=1)
-                else:
-                    points, P = pts, pts.shape[1]
-                if unify:
-                    out = model(points, one_hot, pts, completion_prompt=noisy, denoise=noisy,
-                                point_num=P)
-                else:
-                    out = model(points, one_hot, pts)
-            loss = nll_seg_loss(out, target)
-            acc = (out.argmax(-1) == target).float().mean() * 100.0
             # cleared before the backward and read after the step: outside both spans
             optimizer.zero_grad()
-            with annotate("backward"):
-                loss.backward()
+            metrics = graphed(pts, cls_label, target, generator=gen,
+                              accumulate=optimizer.accumulate, draws=draws)
             with annotate("optimizer"):
                 optimizer.step()
-            loss, acc = reduce_mean(torch.stack([loss.detach(), acc.detach()]), data_group())
+            loss, acc = reduce_mean(metrics, data_group())
             return {"loss": loss, "acc": acc}
 
     return train_step

@@ -36,7 +36,9 @@ counter over its unit. While a root is open on CUDA the recorder sets
 the synchronising calls it reports on the root's thread as ``host_syncs``;
 such a report from another thread is dropped (the mode is process-wide and
 on only because the recorder set it), and every other warning passes on
-as it came.
+as it came. While the current stream captures a CUDA graph ``annotate``
+returns the no-op: the captured work runs later, at each replay, so a span
+of a replayed pass does not exist (``utils/cuda_graphs.py``).
 
 ``units()`` synchronises once, places every device window on the host
 clock by one anchor event (recorded after the sync, so it runs at once)
@@ -168,10 +170,17 @@ class _Span:
         return False
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False before
+    the process uses CUDA)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def annotate(name: str):
     """A span named ``name`` (a context manager); a shared no-op while the
-    recorder is off."""
-    if _forced or _autograd_profiler._is_profiler_enabled:
+    recorder is off, and while the current stream captures a CUDA graph
+    (an event recorded into a capture cannot be timed)."""
+    if (_forced or _autograd_profiler._is_profiler_enabled) and not capturing():
         return _Span(name)
     return _OFF
 
