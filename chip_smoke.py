@@ -1704,15 +1704,16 @@ def pretrain_setup(config, device):
 
 @contextlib.contextmanager
 def eager_steps():
-    """Every ``cuda_graphs.GraphedStep`` call inside runs eager, as a key's
-    first call does (the kNN backward's profiler ranges exist only there)."""
+    """Every ``cuda_graphs`` call inside (a ``GraphedStep``'s, a pass's) runs
+    eager, as a key's first call does (the kNN backward's profiler ranges
+    exist only there)."""
     from upp_torch.utils import cuda_graphs
-    reason = cuda_graphs.step_eager_reason
-    cuda_graphs.step_eager_reason = lambda *a, **kw: "chip_smoke"
+    reason = cuda_graphs.eager_reason
+    cuda_graphs.eager_reason = lambda *a, **kw: "chip_smoke"
     try:
         yield
     finally:
-        cuda_graphs.step_eager_reason = reason
+        cuda_graphs.eager_reason = reason
 
 
 def check_replayed_step(name, step, model, batch, want):

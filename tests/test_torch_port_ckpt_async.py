@@ -1,10 +1,11 @@
 """The port's asynchronous checkpoint writer (``upp_torch/train/checkpoint.py``):
 the five cases of ``tests/test_ckpt_async.py`` (the JAX package's writer),
-with ``torch.save`` replaced by a slow stub. A save returns at once, writes
-on a writer thread per path, keeps only the newest snapshot queued while a
-write is in flight, and ``wait_for_pending_saves`` re-raises a failed
-write."""
+with ``torch.save`` replaced by a slow stub, and a failure joined after its
+writer ended. A save returns at once, writes on a writer thread per path,
+keeps only the newest snapshot queued while a write is in flight, and
+``wait_for_pending_saves`` re-raises a failed write."""
 
+import threading
 import time
 
 import pytest
@@ -100,5 +101,20 @@ def test_first_write_failure_surfaces_on_join(stub, tmp_path):
     log, holder = stub
     holder["save"] = _SlowStubSave(log, delay=0.01, fail_on={7})
     _save(7, tmp_path)
+    with pytest.raises(RuntimeError, match="async checkpoint write"):
+        ckpt.wait_for_pending_saves()
+
+
+def test_a_failure_surfaces_on_join_after_its_writer_ended(stub, tmp_path):
+    """The chain's one write fails and its writer thread ends before the
+    join: the join still re-raises."""
+    log, holder = stub
+    holder["save"] = _SlowStubSave(log, delay=0.0, fail_on={7})
+    _save(7, tmp_path)
+    path = ckpt.checkpoint_path(str(tmp_path), "ckpt-last")
+    writers = [t for t in threading.enumerate() if t.name == f"ckpt-writer {path}"]
+    for t in writers:
+        t.join(timeout=10)
+        assert not t.is_alive()
     with pytest.raises(RuntimeError, match="async checkpoint write"):
         ckpt.wait_for_pending_saves()

@@ -1,6 +1,6 @@
 """CUDA graphs of the inference passes and of the training steps
 (``upp_torch/utils/cuda_graphs.py``): when ``run`` and ``GraphedStep`` graph
-and when they run eager, on the CPU; on a card (the ``card`` tests, which
+and when they run eager through their one path, on the CPU; on a card (the ``card`` tests, which
 skip without one; this file imports no JAX, so on the card's machine it
 runs alone: ``python -m pytest --noconftest -m card
 tests/test_torch_port_cuda_graphs.py``), the graphed eval and train steps
@@ -87,37 +87,24 @@ def clouds(b, n, seed=0, device="cpu"):
 
 # -- on the CPU ----------------------------------------------------------------
 
-@pytest.mark.parametrize("reason", ["grad", "training", "ranks", "device"])
-def test_the_helper_runs_eager_and_counts_it(reason, monkeypatch):
-    """Grad on, a training module, two ranks or a host tensor: ``run`` calls
-    ``fn`` as it is, counts ``cuda_graph.eager`` and keeps no graph."""
-    owner = torch.nn.Linear(3, 2).train(reason == "training")
-    if reason == "ranks":
-        monkeypatch.setattr(cuda_graphs, "get_dist_info", lambda: (0, 2))
-    x = torch.randn(4, 3)
-    with torch.set_grad_enabled(reason == "grad"):
-        assert cuda_graphs.eager_reason(owner, (x,)) == reason
-        for _ in range(3):
-            out = cuda_graphs.run(owner, "site", owner, x)
-            assert torch.equal(out, owner(x))
-    assert profiling.counts() == {"cuda_graph.eager": 3}
-    assert "_cuda_graphs" not in vars(owner)
-
-
 def test_a_key_runs_eager_then_captures_then_replays(monkeypatch):
     """The control flow past the conditions: a key's first call eager, its
     second captured, later ones replayed; at most ``MAX_KEYS`` keys a site,
-    the least recently used dropped; a moved parameter recaptures."""
+    the least recently used dropped; a moved parameter recaptures; a capture
+    that raises leaves its key eager."""
     owner = torch.nn.Linear(3, 2).eval()
     made = []
 
-    def capture(graphs, owner, fn, args):
-        made.append(args[0].shape[0])
+    def capture(graphs, owner, fn, args, generator):
+        rows = args[0].shape[0]
+        made.append(rows)
+        if rows == 20:
+            raise RuntimeError("operation not permitted when stream is capturing")
         if graphs.places is None:
             graphs.places = cuda_graphs._Places(owner)
-        return types.SimpleNamespace(rows=args[0].shape[0])
+        return types.SimpleNamespace(rows=rows)
 
-    monkeypatch.setattr(cuda_graphs, "eager_reason", lambda owner, args: None)
+    monkeypatch.setattr(cuda_graphs, "eager_reason", lambda args, own: None)
     monkeypatch.setattr(cuda_graphs, "_capture", capture)
     monkeypatch.setattr(cuda_graphs, "_replay", lambda entry, args: ("replay", entry.rows))
 
@@ -135,7 +122,11 @@ def test_a_key_runs_eager_then_captures_then_replays(monkeypatch):
     assert call(2) == ("replay", 2) and made == [1, 2]
     owner.weight = torch.nn.Parameter(owner.weight.detach().clone())
     assert call(2) == ("replay", 2) and made == [1, 2, 2]
-    assert profiling.counts()["cuda_graph.eager"] == 2 + cuda_graphs.MAX_KEYS
+    assert [call(20), call(20), call(20)] == [("eager", 20)] * 3 and made == [1, 2, 2, 20]
+    counts = profiling.counts()
+    assert counts["cuda_graph.eager"] == 2 + cuda_graphs.MAX_KEYS + 3
+    assert counts["cuda_graph.captures"] == len(made) - 1        # the failed one not
+    assert counts["cuda_graph.replays"] == 2        # a capturing call is no replay
 
 
 def test_parameters_moved_or_in_place_are_told_apart():
@@ -225,30 +216,48 @@ def tiny_step():
     return owner, fn
 
 
-@pytest.mark.parametrize("reason", ["device", "draws", "accumulate", "ranks", "capturing"])
-def test_the_step_runs_eager_and_counts_it(reason, monkeypatch):
-    """A host tensor, the draws given, an accumulating optimizer, two ranks
-    or a capture under way: the step runs ``fn`` as it is, counts
-    ``cuda_graph.eager`` and keeps no key."""
-    owner, fn = tiny_step()
-    step = cuda_graphs.GraphedStep(owner, fn)
-    kw = {"accumulate": 2 if reason == "accumulate" else 1,
-          "draws": "given" if reason == "draws" else None}
+EAGER = ([("pass", r) for r in ("grad", "training", "ranks", "device", "capturing")]
+         + [("step", r) for r in ("device", "draws", "accumulate", "ranks", "capturing")])
+
+
+@pytest.mark.parametrize("wrapper, reason", EAGER, ids=[f"{w}-{r}" for w, r in EAGER])
+def test_a_call_runs_eager_and_counts_it(wrapper, reason, monkeypatch):
+    """Each condition of the one eager check, through ``run`` (grad on, a
+    training module) or ``GraphedStep`` (the draws given, an accumulating
+    optimizer) and through both (two ranks, a host tensor, a capture under
+    way): ``fn`` runs as it is, for that reason, no key is kept, and each
+    call counts ``cuda_graph.eager``, but one made while a capture is under
+    way, which is part of that capture and counts nothing."""
     if reason == "ranks":
         monkeypatch.setattr(cuda_graphs, "get_dist_info", lambda: (0, 2))
     if reason == "capturing":
         monkeypatch.setattr(profiling, "capturing", lambda: True)
+    reasons = []
+    eager = cuda_graphs._eager
+    monkeypatch.setattr(cuda_graphs, "_eager",
+                        lambda why, fn, args: reasons.append(why) or eager(why, fn, args))
     x = torch.randn(4, 3)
-    assert cuda_graphs.step_eager_reason((x,), **kw) == reason
-    gen = torch.Generator()
-    with torch.random.fork_rng(devices=[]):
-        for i in range(3):
-            torch.manual_seed(i)
-            got = step(x, generator=gen.manual_seed(i), **kw)
-            torch.manual_seed(i)
-            assert torch.equal(got, fn(x, generator=gen.manual_seed(i)))
-    assert profiling.counts() == {"cuda_graph.eager": 3}
-    assert not step.keys and step.graphs.places is None
+    if wrapper == "pass":
+        owner = torch.nn.Linear(3, 2).train(reason == "training")
+        with torch.set_grad_enabled(reason == "grad"):
+            for _ in range(3):
+                assert torch.equal(cuda_graphs.run(owner, "site", owner, x), owner(x))
+        assert "_cuda_graphs" not in vars(owner)
+    else:
+        owner, fn = tiny_step()
+        step = cuda_graphs.GraphedStep(owner, fn)
+        kw = {"accumulate": 2 if reason == "accumulate" else 1,
+              "draws": "given" if reason == "draws" else None}
+        gen = torch.Generator()
+        with torch.random.fork_rng(devices=[]):
+            for i in range(3):
+                torch.manual_seed(i)
+                got = step(x, generator=gen.manual_seed(i), **kw)
+                torch.manual_seed(i)
+                assert torch.equal(got, fn(x, generator=gen.manual_seed(i)))
+        assert not step.graphs.sites and step.graphs.places is None
+    assert reasons == [reason] * 3
+    assert profiling.counts() == ({} if reason == "capturing" else {"cuda_graph.eager": 3})
 
 
 def test_a_step_key_runs_eager_then_captures_then_replays(monkeypatch):
@@ -259,19 +268,18 @@ def test_a_step_key_runs_eager_then_captures_then_replays(monkeypatch):
     owner = torch.nn.Sequential(torch.nn.Linear(3, 2), torch.nn.Linear(2, 1))
     made = []
 
-    def capture(self, args, generator):
+    def capture(graphs, owner, fn, args, generator):
         rows = args[0].shape[0]
         made.append(rows)
         if rows == 3:
             raise RuntimeError("operation not permitted when stream is capturing")
-        if self.graphs.places is None:
-            self.graphs.places = cuda_graphs._Places(self.owner)
+        if graphs.places is None:
+            graphs.places = cuda_graphs._Places(owner)
         return types.SimpleNamespace(rows=rows)
 
-    monkeypatch.setattr(cuda_graphs, "step_eager_reason", lambda *a: None)
-    monkeypatch.setattr(cuda_graphs.GraphedStep, "_capture", capture)
-    monkeypatch.setattr(cuda_graphs.GraphedStep, "_replay",
-                        lambda self, entry, args: ("replay", entry.rows))
+    monkeypatch.setattr(cuda_graphs, "eager_reason", lambda args, own: None)
+    monkeypatch.setattr(cuda_graphs, "_capture", capture)
+    monkeypatch.setattr(cuda_graphs, "_replay", lambda entry, args: ("replay", entry.rows))
     step = cuda_graphs.GraphedStep(owner, lambda x, generator, draws: ("eager", x.shape[0]))
 
     def call(rows):
@@ -287,7 +295,7 @@ def test_a_step_key_runs_eager_then_captures_then_replays(monkeypatch):
     assert [call(3), call(3), call(3)] == [("eager", 3)] * 3 and made == [1, 1, 3]
     for rows in range(4, 4 + cuda_graphs.MAX_KEYS):     # the oldest keys dropped
         call(rows)
-    assert call(1) == ("eager", 1) and len(step.keys) == cuda_graphs.MAX_KEYS
+    assert call(1) == ("eager", 1) and len(step.graphs.sites["step"]) == cuda_graphs.MAX_KEYS
     call(5)
     with torch.no_grad():
         owner[1].weight.add_(1.0)                       # in place: the graphs stay
@@ -356,10 +364,11 @@ def same(a, b):
 @pytest.mark.parametrize("kind", ["cls", "seg"])
 def test_wrapped_train_steps_equal_the_unwrapped_ones(kind, monkeypatch):
     """Three steps: losses, parameters, BatchNorm buffers and AdamW state
-    bit-equal with and without the step's ``GraphedStep`` (on the CPU it
-    runs eager, one count a step)."""
+    bit-equal with and without the step's ``GraphedStep``. On the CPU each
+    step runs eager and counts once, and so does each of the cls model's
+    three passes inside it (grad on): 4 a cls step, 1 a seg step. No call
+    here is made during a capture, the one kind that counts nothing."""
     wrapped = train(kind, 3)
-    # a step each, and in cls its three passes (grad on)
     assert profiling.counts()["cuda_graph.eager"] == 3 * (4 if kind == "cls" else 1)
     unwrapped(monkeypatch)
     direct = train(kind, 3)
@@ -523,7 +532,7 @@ def test_graphed_train_steps_equal_eager(kind, switch, monkeypatch, deterministi
     counts = profiling.counts()
     assert counts["cuda_graph.captures"] == keys
     assert counts["cuda_graph.replays"] == steps - 2 * keys
-    monkeypatch.setattr(cuda_graphs, "step_eager_reason", lambda *a: "forced")
+    monkeypatch.setattr(cuda_graphs, "eager_reason", lambda args, own: "forced")
     eager = train(kind, steps, "cuda", switch)
     assert same(graphed[0], eager[0]), (graphed[0], eager[0])
     assert same(graphed[1], eager[1]), gaps(graphed[1], eager[1])
@@ -549,6 +558,34 @@ def test_a_replayed_train_step_counts_one_replay_and_its_launches():
     assert "cuda_graph.eager" not in unit["counts"]
     assert unit["counts"].get("host_syncs", 0) == 0
     assert [s["name"] for s in unit["spans"]] == ["optimizer"]
+
+
+@pytest.mark.card
+def test_a_pass_whose_capture_fails_stays_eager():
+    """A pass that draws and then synchronises cannot be captured: its key
+    runs eager from then on, and every call answers as the pass run eager,
+    the default generator drawing on as before."""
+    need_card()
+    owner = torch.nn.Linear(3, 2).cuda().eval()
+
+    def synced(x):
+        out = owner(x) + torch.rand(x.shape[0], 2, device=x.device)
+        assert out.sum().item() == out.sum().item()
+        return out
+
+    x = torch.randn(8, 3, device="cuda")
+    runs = []
+    for call in (lambda: cuda_graphs.run(owner, "site", synced, x), lambda: synced(x)):
+        with torch.random.fork_rng(devices=[0]), torch.inference_mode():
+            torch.cuda.manual_seed(5)
+            outs = [call() for _ in range(4)]
+            outs.append(torch.rand(3, device="cuda"))
+        runs.append(outs)
+    assert profiling.counts() == {"cuda_graph.eager": 4}
+    assert same(*runs)
+    assert list(cuda_graphs.graphs_of(owner).sites["site"].values()) == [cuda_graphs._FAILED]
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
 
 
 @pytest.mark.card

@@ -43,6 +43,9 @@ from ..utils.logger import print_log
 # write lands in the box and surfaces on the next join
 _PENDING: Dict[str, Tuple[threading.Thread, List[BaseException]]] = {}
 _QUEUED: Dict[str, Callable[[], None]] = {}   # path -> newest write not yet started
+# path -> the entry of a chain that ended after a failed write, which the next
+# join re-raises (the first such chain of a path)
+_FAILED: Dict[str, Tuple[threading.Thread, List[BaseException]]] = {}
 _PENDING_LOCK = threading.Lock()
 
 
@@ -61,10 +64,11 @@ def wait_for_pending_saves() -> None:
     first failed one (a run must not finish reporting checkpoints that were
     never written), then wait for every rank."""
     with _PENDING_LOCK:
-        pending = dict(_PENDING)
+        pending = [*_FAILED.items(), *_PENDING.items()]
         _PENDING.clear()
+        _FAILED.clear()
     first = None
-    for path, (t, err_box) in pending.items():
+    for path, (t, err_box) in pending:
         try:
             _join_writer(t, err_box, path)
         except RuntimeError as e:
@@ -155,7 +159,12 @@ def save_checkpoint(model: nn.Module, optimizer, epoch: int, prefix: str,
                     with _PENDING_LOCK:
                         w = _QUEUED.pop(path, None)
                         if w is None:
-                            _PENDING.pop(path, None)
+                            # a join that took the entry already reports it
+                            mine = _PENDING.get(path)
+                            if mine is not None and mine[0] is threading.current_thread():
+                                del _PENDING[path]
+                                if mine[1]:
+                                    _FAILED.setdefault(path, mine)
                             return
 
             t = threading.Thread(target=chain_loop, name=f"ckpt-writer {path}")

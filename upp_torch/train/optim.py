@@ -53,7 +53,9 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..parallel.dist import _all_reduce, average_gradients, data_group
+from ..parallel.dist import _all_reduce, average_gradients, data_group, reduce_mean
+from ..utils import cuda_graphs
+from ..utils.profiling import annotate
 
 
 def peft_detect(name: str, targets: Iterable[str]) -> bool:
@@ -226,6 +228,40 @@ def step_generator(gens: dict, device: torch.device, seed: int,
     if gen is None:
         gen = gens[device] = torch.Generator(device)
     return gen.manual_seed((seed << 32) + calls)
+
+
+def graphed_train_step(model: nn.Module, optimizer: ScheduledOptimizer,
+                       forward_backward: Callable, seed: int) -> Callable:
+    """``train_step(*batch, draws=None) -> {"loss", "acc"}``, the frame of
+    the cls and seg train steps around ``forward_backward(*batch, generator,
+    draws)`` (a step's forward passes, loss and ``backward()``, returning
+    [loss, accuracy]), in the span ``train_step``: the step's generator
+    (``step_generator`` from ``seed``), the model in train mode, the
+    gradients cleared, ``forward_backward`` through a
+    ``cuda_graphs.GraphedStep``, ``optimizer.step()`` in the span
+    ``optimizer``, and the metrics averaged over the data ranks. ``batch``
+    is the leading tensor arguments; a trailing one that is not a tensor is
+    ``draws``."""
+    graphed = cuda_graphs.GraphedStep(model, forward_backward)
+    gens = {}                       # the device generator, made at the first step
+
+    def train_step(*batch, draws=None):
+        if batch and not isinstance(batch[-1], torch.Tensor):
+            *batch, draws = batch
+        with annotate("train_step"):
+            gen = step_generator(gens, batch[0].device, seed, optimizer.calls)
+            model.train()
+            # the gradients must be cleared before the backward and read
+            # after the step, so the clearing sits outside both spans
+            optimizer.zero_grad()
+            metrics = graphed(*batch, generator=gen, accumulate=optimizer.accumulate,
+                              draws=draws)
+            with annotate("optimizer"):
+                optimizer.step()
+            loss, acc = reduce_mean(metrics, data_group())
+            return {"loss": loss, "acc": acc}
+
+    return train_step
 
 
 def build_optimizer(config, model: nn.Module, steps_per_epoch: int) -> ScheduledOptimizer:

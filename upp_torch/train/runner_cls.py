@@ -30,14 +30,13 @@ from ..models import MODELS, build_model_from_cfg
 from ..ops.corrupt import normalize_unit_sphere, scale_translate
 from ..ops.fps import fps
 from ..parallel import shard
-from ..parallel.dist import data_group, gather_samples, get_dist_info, reduce_mean
-from ..utils import cuda_graphs
+from ..parallel.dist import gather_samples, get_dist_info
 from ..utils.logger import get_logger, print_log
 from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from .ckpt_io import load_weights
 from .metrics import AccMetric, AverageMeter, cross_entropy_loss_acc
-from .optim import build_optimizer, count_params, set_trainable, step_generator
+from .optim import build_optimizer, count_params, graphed_train_step, set_trainable
 from .pipeline import CorruptDraws, corrupt_batch, resolve_augmentation, subsample_fps_random
 
 # PEFT trainable-name lists (tools/runner_module.py:62-66, 230-244); the
@@ -105,7 +104,7 @@ def make_train_step(model, optimizer, config, args):
     the global batch (``parallel.shard.global_batch``) and the returned
     loss and accuracy are the global batch's. On a card the forward passes,
     the loss and the backward replay as one CUDA graph from a key's second
-    step on, the optimizer eager after it (``cuda_graphs.GraphedStep``:
+    step on, the optimizer eager after it (``optim.graphed_train_step``;
     eager over several ranks, with ``draws``, or when the optimizer
     accumulates)."""
     noisy_train = bool(config.get("noisy_train", False))
@@ -119,8 +118,6 @@ def make_train_step(model, optimizer, config, args):
         add_noise=bool(getattr(args, "noise", True)),
         noise_types=tuple(getattr(args, "noise_type", ("gaussian_noise", "lidar_noise"))),
         augmentation=augmentation, normalize=bool(getattr(args, "normalize", False)))
-    seed = int(getattr(args, "seed", 0)) + 777
-    gens = {}                       # the device generator, made at the first step
 
     def forward_backward(pts: torch.Tensor, label: torch.Tensor,
                          generator: torch.Generator, draws: Optional[CorruptDraws]):
@@ -133,24 +130,8 @@ def make_train_step(model, optimizer, config, args):
             loss.backward()
         return torch.stack([loss.detach(), acc.detach()])
 
-    graphed = cuda_graphs.GraphedStep(model, forward_backward)
-
-    def train_step(pts: torch.Tensor, label: torch.Tensor,
-                   draws: Optional[CorruptDraws] = None):
-        with annotate("train_step"):
-            gen = step_generator(gens, pts.device, seed, optimizer.calls)
-            model.train()
-            # the gradients must be cleared before the backward and read
-            # after the step, so the clearing sits outside both spans
-            optimizer.zero_grad()
-            metrics = graphed(pts, label, generator=gen, accumulate=optimizer.accumulate,
-                              draws=draws)
-            with annotate("optimizer"):
-                optimizer.step()
-            loss, acc = reduce_mean(metrics, data_group())
-            return {"loss": loss, "acc": acc}
-
-    return train_step
+    return graphed_train_step(model, optimizer, forward_backward,
+                              int(getattr(args, "seed", 0)) + 777)
 
 
 def make_eval_step(model, config, args):

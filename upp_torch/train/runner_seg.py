@@ -23,13 +23,12 @@ from ..data import build_dataset_from_cfg
 from ..data.partnormal import SEG_CLASSES
 from ..ops.corrupt import gaussian_shell_noise, lidar_noise, separate_point_cloud
 from ..parallel import shard
-from ..parallel.dist import data_group, gather_samples, reduce_mean
-from ..utils import cuda_graphs
+from ..parallel.dist import gather_samples
 from ..utils.logger import get_logger, print_log
 from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from .metrics import AverageMeter, nll_seg_loss, seg_miou_metrics
-from .optim import build_optimizer, count_params, set_trainable, step_generator
+from .optim import build_optimizer, count_params, graphed_train_step, set_trainable
 from .pipeline import CorruptDraws, resolve_augmentation
 from .runner_cls import build_loaders, init_model, sharded_loader
 
@@ -68,8 +67,6 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
     noisy = bool(config.get("noisy_train", False))
     deviation = float(getattr(args, "deviation", 0.1))
     noise_radius = float(getattr(args, "noise_radius", 0.8))
-    seed = int(getattr(args, "seed", 0)) + 777
-    gens = {}
 
     def forward_backward(pts: torch.Tensor, cls_label: torch.Tensor, target: torch.Tensor,
                          generator: torch.Generator, draws: Optional[CorruptDraws]):
@@ -103,23 +100,8 @@ def make_seg_train_step(model, optimizer, config, args, unify: bool):
             loss.backward()
         return torch.stack([loss.detach(), acc.detach()])
 
-    graphed = cuda_graphs.GraphedStep(model, forward_backward)
-
-    def train_step(pts: torch.Tensor, cls_label: torch.Tensor, target: torch.Tensor,
-                   draws: Optional[CorruptDraws] = None):
-        with annotate("train_step"):
-            gen = step_generator(gens, pts.device, seed, optimizer.calls)
-            model.train()
-            # cleared before the backward and read after the step: outside both spans
-            optimizer.zero_grad()
-            metrics = graphed(pts, cls_label, target, generator=gen,
-                              accumulate=optimizer.accumulate, draws=draws)
-            with annotate("optimizer"):
-                optimizer.step()
-            loss, acc = reduce_mean(metrics, data_group())
-            return {"loss": loss, "acc": acc}
-
-    return train_step
+    return graphed_train_step(model, optimizer, forward_backward,
+                              int(getattr(args, "seed", 0)) + 777)
 
 
 def make_seg_eval_step(model, config, unify: bool):

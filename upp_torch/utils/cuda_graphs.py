@@ -1,54 +1,49 @@
 """CUDA graphs of the inference passes and of the training steps: a call
-site's work captured once per input shape and replayed from then on, so its
-eager dispatch stops holding the device back. ``run`` graphs an inference
-pass (below); ``GraphedStep`` a training step's forward passes, loss and
-backward, with the optimizer left eager after it (its docstring). They
-share the key cache (``Graphs.entry``: eager at a key's first call, at most
-``MAX_KEYS`` a site, every graph recaptured after a parameter or buffer
-moved, which ``_Places`` tells), the shape part of the key, the side stream
-and the counters' take-back at capture.
+site's work captured once per key and replayed from then on, so its eager
+dispatch stops holding the device back. ``run(owner, site, fn, *args)``
+graphs an inference pass; ``GraphedStep`` a training step's forward passes,
+loss and backward, with the optimizer left eager after it. Both go through
+one path:
 
-``run(owner, site, fn, *args)`` returns ``fn(*args)``. Where every one of
-these holds, it replays a graph instead (``eager_reason`` names the first
-that fails; nothing else chooses):
+* ``eager_reason``: a call runs ``fn`` as it is while a capture is under
+  way, where the wrapper's own condition holds (``run``: grad on, or
+  ``owner`` training; ``GraphedStep``: an accumulating optimizer, or the
+  draws given), where a process group of more than one rank is initialized
+  (the propagation's ``all_gather_rows`` and the synced normalisation's
+  ``all_reduce_sum`` stay out of captured regions), and where a tensor
+  argument is not a CUDA tensor.
+* ``Graphs.entry``: a site's graphs are keyed by its tensor arguments'
+  shapes, strides, dtypes and device, its other arguments, inference mode
+  and the TF32 switches (a step's key adds which parameters of ``owner``
+  require a gradient, and ``owner.training``). A key's first call runs
+  eager, which sets up what is made lazily (cuBLAS handles, the kernels'
+  libraries, the Chamfer launch plans); its second captures and replays;
+  every later one replays. At most ``MAX_KEYS`` a site, the least recently
+  used dropped first. A graph reads ``owner``'s parameters and buffers
+  where they lay at capture: where one has moved since (``.to()``,
+  ``load_state_dict(assign=True)``, resharding; ``_Places`` tells), every
+  graph of ``owner`` is captured afresh. An update in place keeps a tensor
+  where it lies, and the replay reads the new values.
+* ``_capture``: ``fn`` on static copies of the arguments, on a side stream,
+  with the caller's generator registered. A capture that raises (a
+  synchronising call) leaves its key eager from then on.
+* ``_replay``: the arguments copied into the static inputs, the graph
+  replayed, each parameter given the gradient the capture assigned it, and
+  clones of the static outputs returned (the next replay overwrites them,
+  and callers keep outputs across calls).
 
-* grad mode is off;
-* ``owner`` (the module that holds the site's graphs) is not training;
-* no process group of more than one rank is initialized (the propagation's
-  ``all_gather_rows`` and the synced normalisation's ``all_reduce_sum`` stay
-  out of captured regions);
-* the tensor arguments are CUDA tensors;
-* no capture is under way.
-
-A site's graphs are keyed by its tensor arguments' shapes, strides, dtypes
-and device, its other arguments, inference mode and the TF32 switches. The
-first call with a key runs eager, which also sets up what is made lazily
-(cuBLAS handles, the kernels' libraries, the Chamfer launch plans). The
-second runs ``fn`` once on a side stream (that stream's own lazy state),
-captures it there into the pool all of ``owner``'s graphs share, and
-replays. Every later call copies the arguments into the graph's static
-inputs, replays, and returns clones of its static outputs: the next replay
-overwrites them, and callers keep outputs across calls.
-
-The graphs live on ``owner``, so they go with it (``clear`` drops them
-sooner), at most ``MAX_KEYS`` a site, the least recently used dropped first.
-A graph reads ``owner``'s parameters and buffers where they lay at capture.
-Before each replay ``run`` checks that none has moved (``.to()``,
-``load_state_dict(assign=True)``, resharding); where one has, every graph
-of ``owner`` is captured afresh. An update in
-place keeps a tensor where it lies, and the replay reads the new values.
-
-Counters (``utils/profiling.count``): a capture runs no kernel, so the
-counters' changes over the captured call (the kernel wrappers'
-``launches.*``) are taken back and added again at each replay, and
-``launches.*`` counts the kernels that ran. ``cuda_graph.captures``,
-``cuda_graph.replays`` and ``cuda_graph.eager`` (a call through ``run``
-that ran eager, whatever the reason) count the calls.
+Counters (``utils/profiling.count``): a call counts one of
+``cuda_graph.eager``, ``cuda_graph.captures`` and ``cuda_graph.replays``,
+but a call made while a capture is under way, which is part of that
+capture and counts nothing. A capture runs no kernel, so the counters'
+changes over it (the kernel wrappers' ``launches.*``) are taken back and
+added again at each replay: ``launches.*`` counts the kernels that ran.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import operator
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -103,7 +98,7 @@ class _Places:
 
 
 class _Graph:
-    __slots__ = ("graph", "inputs", "outputs", "counts")
+    __slots__ = ("graph", "inputs", "outputs", "counts", "grads")
 
 
 _FIRST = "first"            # a key's first call: it runs eager
@@ -111,19 +106,21 @@ _FAILED = "failed"          # a key whose capture raised: it runs eager from the
 
 
 class Graphs:
-    """The graphs of one module's call sites: {site: {key: a ``_Graph``, or
-    None for a key seen once}}, their pool and side stream, and where the
-    module's parameters and buffers lay at capture. A copy or a pickle of
-    the module gets none of them."""
+    """The graphs of one owner's call sites: {site: {key: a ``_Graph``, or
+    None for a key to be captured at its next call}}, their side stream,
+    their memory pool where they share one, and where the owner's
+    parameters and buffers lay at capture. A copy or a pickle gets none of
+    them."""
 
-    def __init__(self):
+    def __init__(self, shared_pool: bool = True):
         self.sites: Dict[str, collections.OrderedDict] = {}
+        self.shared_pool = shared_pool
         self.pool = None
         self.stream: Optional[torch.cuda.Stream] = None
         self.places: Optional[_Places] = None
 
     def __reduce__(self):                  # copy.deepcopy comes here too
-        return (Graphs, ())
+        return (Graphs, (self.shared_pool,))
 
     def moved(self, owner: torch.nn.Module) -> bool:
         """Whether a parameter or buffer of ``owner`` lies elsewhere than at
@@ -175,20 +172,20 @@ def clear(owner: torch.nn.Module) -> None:
     owner.__dict__.pop("_cuda_graphs", None)
 
 
-def eager_reason(owner: torch.nn.Module, args) -> Optional[str]:
-    """Why ``run`` would call ``fn`` eagerly with these arguments (None:
-    it graphs)."""
-    if torch.is_grad_enabled():
-        return "grad"
-    if owner.training:
-        return "training"
+def eager_reason(args, own: Optional[str] = None) -> Optional[str]:
+    """Why a call with these arguments runs eagerly (None: it graphs, from
+    its key's second call on): a capture under way, then ``own`` (the
+    calling wrapper's reason, where it has one), more than one rank, a
+    tensor argument off CUDA (or none)."""
+    if profiling.capturing():
+        return "capturing"
+    if own is not None:
+        return own
     if get_dist_info()[1] > 1:
         return "ranks"
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     if not tensors or any(t.device.type != "cuda" for t in tensors):
         return "device"
-    if torch.cuda.is_current_stream_capturing():
-        return "capturing"
     return None
 
 
@@ -201,18 +198,76 @@ def _key(args) -> tuple:
 
 def run(owner: torch.nn.Module, site: str, fn: Callable, *args) -> Any:
     """``fn(*args)``, from a replayed CUDA graph where ``eager_reason`` finds
-    nothing against it. ``site`` names the call site among ``owner``'s."""
-    if eager_reason(owner, args) is not None:
+    nothing against it. ``site`` names the call site among ``owner``'s,
+    which holds the site's graphs (a copy of ``owner`` holds none)."""
+    own = "grad" if torch.is_grad_enabled() else "training" if owner.training else None
+    reason = eager_reason(args, own)
+    if reason is not None:
+        return _eager(reason, fn, args)
+    return _graphed(graphs_of(owner), owner, site, _key(args), fn, args)
+
+
+class GraphedStep:
+    """``step(*args, generator=None, accumulate=1, draws=None)`` returns
+    ``fn(*args, generator=generator, draws=draws)``, where ``fn`` is a
+    training step's forward passes, loss and ``backward()`` (the optimizer
+    stays outside it) and returns tensors; graphed as the module's doc says.
+
+    The caller clears the gradients (``set_to_none``) before each call, so
+    the captured backward assigns them into the graph's pool; after each
+    replay every parameter that the backward reached holds the graph's
+    static gradient as ``.grad`` (the others keep None), which the optimizer
+    may scale in place. Every replay draws what an eager call would from the
+    generator's state before it: the caller seeds it before each call and
+    passes the same generator with a key (the steps' one a device). The
+    graphs go with the ``GraphedStep``."""
+
+    def __init__(self, owner: torch.nn.Module, fn: Callable):
+        self.owner = owner
+        self.fn = fn
+        self.graphs = Graphs(shared_pool=False)
+        self.params: List[torch.nn.Parameter] = []
+        self.params_at = -1         # ``_registrations`` when ``params`` was read
+
+    def key(self, args) -> tuple:
+        if self.params_at != _registrations:
+            self.params = list(self.owner.parameters())
+            self.params_at = _registrations
+        return _key(args), tuple(p.requires_grad for p in self.params), self.owner.training
+
+    def __call__(self, *args, generator: Optional[torch.Generator] = None,
+                 accumulate: int = 1, draws: Any = None) -> Any:
+        fn = functools.partial(self.fn, generator=generator, draws=draws)
+        own = "accumulate" if accumulate > 1 else "draws" if draws is not None else None
+        reason = eager_reason(args, own)
+        if reason is not None:
+            return _eager(reason, fn, args)
+        return _graphed(self.graphs, self.owner, "step", self.key(args), fn, args, generator)
+
+
+def _eager(reason: str, fn: Callable, args) -> Any:
+    if reason != "capturing":       # else the call is part of the capture
         profiling.count("cuda_graph.eager")
-        return fn(*args)
-    graphs = graphs_of(owner)
-    key = _key(args)
+    return fn(*args)
+
+
+def _graphed(graphs: Graphs, owner: torch.nn.Module, site: str, key: tuple, fn: Callable,
+             args, generator: Optional[torch.Generator] = None) -> Any:
+    """``fn(*args)`` at ``site``'s ``key``: eager at the key's first call and
+    after its capture raised, captured at its second, replayed from then on."""
     entry = graphs.entry(owner, site, key)
-    if entry is _FIRST:
-        profiling.count("cuda_graph.eager")
-        return fn(*args)
+    if entry is _FIRST or entry is _FAILED:
+        return _eager(entry, fn, args)
     if entry is None:
-        entry = graphs.sites[site][key] = _capture(graphs, owner, fn, args)
+        try:
+            entry = _capture(graphs, owner, fn, args, generator)
+        except RuntimeError:
+            graphs.sites[site][key] = _FAILED
+            return _eager(_FAILED, fn, args)
+        graphs.sites[site][key] = entry
+        profiling.count("cuda_graph.captures")
+    else:
+        profiling.count("cuda_graph.replays")
     return _replay(entry, args)
 
 
@@ -225,10 +280,6 @@ def _side_stream(graphs: Graphs, device: torch.device) -> torch.cuda.Stream:
     return graphs.stream
 
 
-def _static_inputs(args) -> list:
-    return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-
-
 def _take_back(before: Dict[str, int]) -> List[Tuple[str, int]]:
     """The counters' changes since ``before`` (a capture's), taken back."""
     changes = [(k, v - before.get(k, 0)) for k, v in profiling.counts().items()
@@ -238,75 +289,14 @@ def _take_back(before: Dict[str, int]) -> List[Tuple[str, int]]:
     return changes
 
 
-def _capture(graphs: Graphs, owner: torch.nn.Module, fn: Callable, args) -> _Graph:
-    """Capture ``fn`` on static copies of ``args`` into ``graphs``' pool, on
-    its side stream after one eager call there."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    side = _side_stream(graphs, device)
-    if graphs.pool is None:
-        graphs.pool = torch.cuda.graph_pool_handle()
-    entry = _Graph()
-    entry.inputs = _static_inputs(args)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn(*entry.inputs)
-    before = profiling.counts()
-    entry.graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(entry.graph, pool=graphs.pool, stream=side,
-                          capture_error_mode="thread_local"):
-        entry.outputs = fn(*entry.inputs)
-    entry.counts = _take_back(before)
-    torch.cuda.current_stream(device).wait_stream(side)
-    if graphs.places is None:
-        graphs.places = _Places(owner)
-    profiling.count("cuda_graph.captures")
-    return entry
-
-
-def _launch(entry: _Graph, args) -> None:
-    """Copy ``args`` into the graph's static inputs, replay it, and add the
-    counters' changes its capture took back."""
-    for static, a in zip(entry.inputs, args):
-        if isinstance(a, torch.Tensor):
-            static.copy_(a)
-    entry.graph.replay()
-    for k, n in entry.counts:
-        profiling.count(k, n)
-
-
-def _replay(entry: _Graph, args) -> Any:
-    _launch(entry, args)
-    profiling.count("cuda_graph.replays")
-    return tree_map_only(torch.Tensor, torch.clone, entry.outputs)
-
-
-# -- the training step -----------------------------------------------------------
-
-def step_eager_reason(args, accumulate: int = 1, draws: Any = None) -> Optional[str]:
-    """Why ``GraphedStep`` would run a step eagerly with these arguments
-    (None: it graphs, from the key's second call on)."""
-    if profiling.capturing():
-        return "capturing"
-    if get_dist_info()[1] > 1:
-        return "ranks"
-    if accumulate > 1:
-        return "accumulate"
-    if draws is not None:
-        return "draws"
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    if not tensors or any(t.device.type != "cuda" for t in tensors):
-        return "device"
-    return None
-
-
 def _unstick(gens: List[torch.Generator], states: List[torch.Tensor]) -> None:
     """Put each generator of ``gens`` (the device's default one first) back
     at its state of ``states`` after a capture that raised. Such a capture
     can end before its generators' states leave capture mode, where they
     refuse every draw outside a capture; a capture of one draw from each,
     ended, takes them out of it in place, so the graphs that registered
-    those states (other keys', ``run``'s) go on reading the states that the
-    generators' seeding updates."""
+    those states (other keys', other sites') go on reading the states that
+    the generators' seeding updates."""
     graph = torch.cuda.CUDAGraph()
     for g in gens[1:]:              # every capture registers the default one
         graph.register_generator_state(g)
@@ -318,125 +308,69 @@ def _unstick(gens: List[torch.Generator], states: List[torch.Tensor]) -> None:
         g.set_state(state)
 
 
-class _StepGraph(_Graph):
-    __slots__ = ("grads",)          # (parameter, static gradient) pairs
+def _capture(graphs: Graphs, owner: torch.nn.Module, fn: Callable, args,
+             generator: Optional[torch.Generator]) -> _Graph:
+    """``fn`` captured on static copies of ``args`` on ``graphs``' side
+    stream, ``generator`` registered where given. The gradients it assigns
+    (a ``.grad`` of ``owner``'s set anew) are the graph's static ones. A
+    capture that raises puts back the current stream, the generators' states
+    and the gradients, and drops the side stream."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    main = torch.cuda.current_stream(device)
+    side = _side_stream(graphs, device)
+    # a step graph's static gradients outlive its replay, so each step key
+    # has a pool of its own; pass graphs' outputs are cloned and they replay
+    # in turn, so an owner's live pass graphs share one. A pool that no live
+    # graph holds is not captured into again: what a capture made lazily
+    # (the side stream's cuBLAS workspace) keeps it from being freed, and
+    # the allocator refuses such a pool
+    if graphs.shared_pool and (graphs.pool is None or not any(
+            isinstance(e, _Graph) for keys in graphs.sites.values() for e in keys.values())):
+        graphs.pool = torch.cuda.graph_pool_handle()
+    gens = [torch.cuda.default_generators[device.index]]
+    if generator is not None:
+        gens.append(generator)
+    states = [g.get_state() for g in gens]
+    params = list(owner.parameters())
+    grads = [p.grad for p in params]
+    entry = _Graph()
+    entry.inputs = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    entry.graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        entry.graph.register_generator_state(generator)
+    before = profiling.counts()
+    side.wait_stream(main)
+    try:
+        with torch.cuda.graph(entry.graph, pool=graphs.pool, stream=side,
+                              capture_error_mode="thread_local"):
+            entry.outputs = fn(*entry.inputs)
+    except RuntimeError:
+        # a capture that fails can leave the side stream current, its
+        # allocations routed to the failed capture's pool, the generators
+        # marked as capturing and gradients in that pool
+        torch.cuda.set_stream(main)
+        graphs.stream = None
+        _unstick(gens, states)
+        for p, grad in zip(params, grads):
+            if p.grad is not grad:
+                p.grad = grad
+        raise
+    finally:
+        entry.counts = _take_back(before)
+        main.wait_stream(side)
+    entry.grads = [(p, p.grad) for p, grad in zip(params, grads) if p.grad is not grad]
+    if graphs.places is None:
+        graphs.places = _Places(owner)
+    return entry
 
 
-class GraphedStep:
-    """``step(*args, generator=None, accumulate=1, draws=None)`` returns
-    ``fn(*args, generator=generator, draws=draws)``, where ``fn`` is a
-    training step's forward passes, loss and ``backward()`` (the optimizer
-    stays outside it) and returns tensors. Where ``step_eager_reason`` finds
-    nothing against it, the second call with a key captures ``fn`` as one
-    CUDA graph and every later call replays it.
-
-    The key: the tensor arguments' shapes, strides, dtypes and device,
-    inference mode and the TF32 switches (as ``run``'s), which parameters of
-    ``owner`` require a gradient (a change of the trainable set captures
-    anew) and ``owner.training``. At most ``MAX_KEYS``, the least recently
-    used dropped first; where a parameter or buffer of ``owner`` moved,
-    every key is captured afresh.
-
-    A key's first call runs eager on the caller's stream: that is its
-    warm-up. The second expects the gradients cleared (``set_to_none``), so
-    the captured backward assigns them into the graph's own pool; it
-    captures ``fn`` on a side stream with the generator registered
-    (``register_generator_state``) and replays, so that call too has the
-    effect of one step. Every replay draws what an eager call would from the
-    generator's state before it: the caller seeds it before each call, and
-    passes the same generator with a key (the steps' one a device). After
-    each replay every parameter that the backward reached holds the graph's
-    static gradient as ``.grad`` (the others keep None), which the optimizer
-    may scale in place (the next replay overwrites it), and the outputs are
-    clones. Each graph has a memory pool of its own (a key's static
-    gradients and outputs stay live while another key replays), and the
-    graphs go with the ``GraphedStep``. A capture that raises (a
-    synchronising call) leaves its key eager.
-
-    Counters as ``run``'s, but for ``cuda_graph.*``: a replay counts
-    ``cuda_graph.replays``, the call that captures ``cuda_graph.captures``,
-    an eager call ``cuda_graph.eager``; the capture's own ``cuda_graph.*``
-    changes (the passes' ``run`` calls, eager under grad) are not added
-    again at a replay."""
-
-    def __init__(self, owner: torch.nn.Module, fn: Callable):
-        self.owner = owner
-        self.fn = fn
-        self.graphs = Graphs()
-        self.keys = self.graphs.sites["step"] = collections.OrderedDict()
-        self.params: List[torch.nn.Parameter] = []
-        self.params_at = -1         # ``_registrations`` when ``params`` was read
-
-    def key(self, args) -> tuple:
-        if self.params_at != _registrations:
-            self.params = list(self.owner.parameters())
-            self.params_at = _registrations
-        return _key(args), tuple(p.requires_grad for p in self.params), self.owner.training
-
-    def __call__(self, *args, generator: Optional[torch.Generator] = None,
-                 accumulate: int = 1, draws: Any = None) -> Any:
-        if step_eager_reason(args, accumulate, draws) is not None:
-            return self._eager(args, generator, draws)
-        key = self.key(args)
-        entry = self.graphs.entry(self.owner, "step", key)
-        if entry is _FIRST or entry is _FAILED:
-            return self._eager(args, generator, draws)
-        if entry is None:
-            try:
-                entry = self._capture(args, generator)
-            except RuntimeError:
-                self.keys[key] = _FAILED
-                return self._eager(args, generator, draws)
-            self.keys[key] = entry
-            profiling.count("cuda_graph.captures")
-        else:
-            profiling.count("cuda_graph.replays")
-        return self._replay(entry, args)
-
-    def _eager(self, args, generator, draws) -> Any:
-        profiling.count("cuda_graph.eager")
-        return self.fn(*args, generator=generator, draws=draws)
-
-    def _capture(self, args, generator) -> _StepGraph:
-        device = next(a.device for a in args if isinstance(a, torch.Tensor))
-        main = torch.cuda.current_stream(device)
-        side = _side_stream(self.graphs, device)
-        entry = _StepGraph()
-        entry.inputs = _static_inputs(args)
-        gens = [torch.cuda.default_generators[device.index]]
-        if generator is not None:
-            gens.append(generator)
-        states = [g.get_state() for g in gens]
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        before = profiling.counts()
-        side.wait_stream(main)
-        try:
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                entry.outputs = self.fn(*entry.inputs, generator=generator, draws=None)
-        except RuntimeError:
-            # a capture that fails can leave the side stream current, its
-            # allocations routed to the failed capture's pool, the
-            # generators marked as capturing and gradients in that pool
-            torch.cuda.set_stream(main)
-            self.graphs.stream = None
-            _unstick(gens, states)
-            for p in self.params:
-                p.grad = None
-            raise
-        finally:
-            changes = _take_back(before)
-            main.wait_stream(side)
-        entry.graph = graph
-        entry.counts = [(k, n) for k, n in changes if not k.startswith("cuda_graph.")]
-        entry.grads = [(p, p.grad) for p in self.params if p.grad is not None]
-        if self.graphs.places is None:
-            self.graphs.places = _Places(self.owner)
-        return entry
-
-    def _replay(self, entry: _StepGraph, args) -> Any:
-        _launch(entry, args)
-        for p, grad in entry.grads:
-            p.grad = grad
-        return tree_map_only(torch.Tensor, torch.clone, entry.outputs)
+def _replay(entry: _Graph, args) -> Any:
+    for static, a in zip(entry.inputs, args):
+        if isinstance(a, torch.Tensor):
+            static.copy_(a)
+    entry.graph.replay()
+    for p, grad in entry.grads:
+        p.grad = grad
+    for k, n in entry.counts:
+        profiling.count(k, n)
+    return tree_map_only(torch.Tensor, torch.clone, entry.outputs)
